@@ -1,0 +1,397 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (jabd_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which ends the run with a non-zero exit on a mismatch:
+
+0. Card: prints `nvidia-smi --query-gpu=name,power.limit` and builds the
+   CUDA kernels from csrc/ (one nvcc per source, all at once).
+1. Kernel against its plain version: the NMS kernel and ops/nms.py on the
+   same inputs on the card, B = 8, K = 5000 and 4999, IoU and DIoU,
+   thresholds 0.3 and 0.45, n_valid 0 / 1 / 37 / K, duplicate boxes,
+   zero-area boxes and grid-aligned boxes (exactly tied metrics). Keep
+   masks must be identical.
+2. Slice: jabd_flagship at full width, 640x640, random weights from a
+   seeded torch.Generator (random BatchNorm state, NLM output projection
+   non-zero), confidence 0.02. With every launch count set to 0 it runs
+   Predictor.detect_preprocessed (float32 with TF32 off, and bfloat16 as
+   the preset says) on a batch of 8, detect_image on 3 images and a
+   BatchingDetector(batch_size=4) answering 8 requests from 4 threads;
+   each path must launch the kernel. Then it checks that the plain NMS
+   gives identical detections on the same head outputs, that the float32
+   heads on the card match the port on the CPU, times the paths and
+   breaks one bf16 batch down by kernel with torch.profiler.
+3. One JSON line of every kernel of the port: launches on the main path,
+   error against the plain version, times and bound.
+
+The last line is {"ok": true, "device": {...}}; it is printed only when
+every phase passed. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+
+# H100 SXM data-sheet peaks (dense): HBM bytes/s and float32 FLOP/s
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# Float operations per (kept box i, later valid box j) metric evaluation.
+METRIC_FLOPS = {"iou": 14, "diou": 34}
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Median milliseconds of `fn()` over `iters` runs, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def back_to_back_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Milliseconds per `fn()` with `iters` calls enqueued back to back
+    between two CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# Phase 1 inputs
+# ---------------------------------------------------------------------------
+
+
+def _random_boxes(rng, n, lo=0.0, hi=1.0):
+    cxy = rng.uniform(lo + 0.05, hi - 0.05, (n, 2))
+    wh = rng.uniform(0.01, 0.2, (n, 2)) * (hi - lo)
+    return np.concatenate([cxy - wh / 2, cxy + wh / 2], 1).astype(np.float32)
+
+
+def nms_cases(k: int, seed: int):
+    """[8, k, 4] boxes and [8, k] valid: the edge cases, one per image."""
+    rng = np.random.default_rng(seed)
+    boxes = np.stack([_random_boxes(rng, k) for _ in range(8)])
+    n_valid = [0, 1, 37, k, k, k, k, 37]
+    # 4: duplicates, 50 distinct boxes repeated (identical boxes suppress).
+    boxes[4] = _random_boxes(rng, 50)[rng.integers(0, 50, k)]
+    # 5: zero-area boxes (x2 == x1) among ordinary ones; union can be 0.
+    flat = rng.random(k) < 0.5
+    boxes[5, flat, 2] = boxes[5, flat, 0]
+    boxes[5, : k // 10] = boxes[5, 0]
+    # 6: grid-aligned 10x10 boxes: many exactly equal metrics.
+    xy = rng.integers(0, 60, (k, 2)).astype(np.float32)
+    boxes[6] = np.concatenate([xy, xy + 10.0], 1)
+    # 7: every box the same: all but the first suppressed.
+    boxes[7] = boxes[7, :1]
+    valid = np.arange(k)[None, :] < np.asarray(n_valid)[:, None]
+    return torch.from_numpy(boxes), torch.from_numpy(valid)
+
+
+def nms_ops(valid, keep_plain, kind):
+    """Float operations this data needs: one metric per (kept i, later
+    valid j) among each image's valid candidates."""
+    n_valid = valid.sum(1)
+    pairs = 0
+    for b in range(valid.shape[0]):
+        kept = torch.nonzero(keep_plain[b, : n_valid[b]]).flatten()
+        pairs += int((n_valid[b] - 1 - kept).sum())
+    return pairs * METRIC_FLOPS[kind]
+
+
+# ---------------------------------------------------------------------------
+# Phase 2 weights
+# ---------------------------------------------------------------------------
+
+
+def seeded_state_dict(cfg, seed: int):
+    """Random weights for `cfg` from a seeded torch.Generator: conv weights
+    N(0, 1/fan_in) (the head convs 0.1 times that), biases N(0, 0.1^2),
+    BatchNorm scale 1 + N(0, 0.1^2), shift and running mean N(0, 0.1^2),
+    running var U(0.5, 1.5). The NLM output projection, zero at init,
+    becomes non-zero."""
+    from jabd_tpu_torch.models import build_model
+
+    g = torch.Generator().manual_seed(seed)
+    model = build_model(cfg, mode="eval", device="cpu")
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d)):
+                std = m.weight[0].numel() ** -0.5
+                if name.endswith("conv1x1"):  # heads: deltas of a few units
+                    std *= 0.1
+                m.weight.copy_(std * torch.randn(m.weight.shape, generator=g))
+                if m.bias is not None:
+                    m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.weight.copy_(1 + 0.1 * torch.randn(c, generator=g))
+                m.bias.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=g))
+    check(bool(model.fpn.nlm.W.weight.abs().sum() > 0), "NLM W is non-zero")
+    return model.state_dict()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+
+    import dataclasses
+
+    from jabd_tpu_torch import _build, configs
+    from jabd_tpu_torch.models import build_model
+    from jabd_tpu_torch.models.fold import fold_batchnorm
+    from jabd_tpu_torch.ops import anchors as A
+    from jabd_tpu_torch.ops import nms as N
+    from jabd_tpu_torch.ops import nms_cuda
+    from jabd_tpu_torch.predict import Predictor, postprocess_outputs, select_candidates
+    from jabd_tpu_torch.serve import BatchingDetector
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # -- phase 0: card and build ---------------------------------------------
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'cached'}")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"[build {name}] {line.strip()}")
+
+    # -- phase 1: kernel against plain ---------------------------------------
+    worst = 0.0
+    for k in (5000, 4999):
+        boxes, valid = nms_cases(k, seed=k)
+        boxes, valid = boxes.to(dev), valid.to(dev)
+        for kind in ("iou", "diou"):
+            for thr in (0.3, 0.45):
+                got = nms_cuda.nms_keep_sorted(boxes, valid, thr, kind)
+                want = N.nms_keep_sorted(boxes, valid, thr, kind)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                worst = max(worst, err)
+                print(f"[phase1] K={k} {kind} thr={thr} kept/image "
+                      f"{want.sum(1).tolist()} mismatches {int((got != want).sum())}")
+                check(torch.equal(got, want), f"kernel == plain at K={k} {kind} {thr}")
+
+    # -- phase 2: the slice on the main path ---------------------------------
+    preset = configs.get_model_config("jabd_flagship")
+    cfg32 = dataclasses.replace(preset, compute_dtype="float32")
+    pcfg = configs.PredictConfig(confidence=0.02, input_shape=(640, 640))
+    state = seeded_state_dict(preset, seed=0)
+    p32 = Predictor(cfg32, state, pcfg, device="cuda")
+    p16 = Predictor(preset, state, pcfg, device="cuda")
+    rng = np.random.default_rng(0)
+    batch8 = rng.normal(0, 50, (8, 640, 640, 3)).astype(np.float32)
+    images = [rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+              for hw in ((480, 640), (720, 1280), (333, 517))]
+    requests = [rng.integers(0, 256, (400 + 40 * i, 600 - 30 * i, 3), dtype=np.uint8)
+                for i in range(8)]
+    torch.cuda.synchronize()
+
+    counter = nms_cuda.nms_keep_sorted
+    counter.launches = 0
+    per_path = {}
+
+    def counted(name, fn):
+        before = counter.launches
+        out = fn()
+        torch.cuda.synchronize()
+        per_path[name] = counter.launches - before
+        return out
+
+    dets32, valid32 = counted("detect_preprocessed f32", lambda: p32.detect_preprocessed(batch8))
+    dets16, valid16 = counted("detect_preprocessed bf16", lambda: p16.detect_preprocessed(batch8))
+    img_dets = counted("detect_image bf16", lambda: [p16.detect_image(im) for im in images])
+    server = BatchingDetector(p16, batch_size=4, max_wait_ms=50.0)
+
+    def serve_all():
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            return list(pool.map(server.detect, requests))
+
+    served = counted("BatchingDetector bf16", serve_all)
+    stats = server.stats()
+    server.close()
+    main_launches = counter.launches
+    print(f"[phase2] launches per path {per_path}; server {stats}")
+    for name, n in per_path.items():
+        check(n > 0, f"{name} launched the NMS kernel")
+    check(len(served) == len(requests) and stats["requests"] == len(requests),
+          "every request answered")
+    check(not server._worker.is_alive(), "server thread stopped")
+    for d in served + img_dets:
+        check(d.ndim == 2 and d.shape[1] == 15 and np.isfinite(d).all(), "pixel dets finite [N, 15]")
+    for dets, valid in ((dets32, valid32), (dets16, valid16)):
+        check(tuple(dets.shape) == (8, 750, 15) and tuple(valid.shape) == (8, 750), "det shapes")
+        check(bool(torch.isfinite(dets).all()), "dets finite")
+    print(f"[phase2] valid dets per image f32 {valid32.sum(1).tolist()} "
+          f"bf16 {valid16.sum(1).tolist()}; detect_image counts "
+          f"{[len(d) for d in img_dets]}; served counts {[len(d) for d in served]}")
+
+    # Plain NMS on the same head outputs gives identical detections.
+    anchors = torch.from_numpy(A.generate_anchors(preset.anchors, (640, 640)).copy()).to(dev)
+    x8 = torch.from_numpy(batch8).to(dev).permute(0, 3, 1, 2)
+    var = preset.anchors.variance
+    kernel_inputs = {}
+    for tag, p in (("f32", p32), ("bf16", p16)):
+        with torch.inference_mode():
+            heads = p.model(x8)
+            d_k, v_k = postprocess_outputs(*heads, anchors, pcfg, var)
+            d_p, v_p = postprocess_outputs(*heads, anchors, pcfg, var, keep_fn=N.nms_keep_sorted)
+            cand_boxes, _, cand_valid, _ = select_candidates(*heads, anchors, pcfg, var)
+        torch.cuda.synchronize()
+        check(torch.equal(v_k, v_p) and torch.equal(d_k, d_p), f"{tag}: kernel dets == plain dets")
+        kernel_inputs[tag] = (cand_boxes.contiguous(), cand_valid.contiguous())
+        print(f"[phase2] {tag}: kernel and plain NMS give identical detections; "
+              f"n_valid per image {cand_valid.sum(1).tolist()}")
+
+    # Float32 heads on the card against the port on the CPU (640x640, bs 1).
+    cpu_model = build_model(cfg32, mode="eval", device="cpu")
+    cpu_model.load_state_dict(state)
+    fold_batchnorm(cpu_model.eval())
+    x1 = torch.from_numpy(batch8[:1]).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        ref = cpu_model(x1)
+        got = p32.model(x1.to(dev))
+        got16 = p16.model(x1.to(dev))
+    for name, r, g, h in zip(("loc", "cls", "landm"), ref, got, got16):
+        err = float((g.cpu() - r).abs().max())
+        scale = max(1.0, float(r.abs().max()))
+        err16 = float((h.float().cpu() - r).abs().max())
+        print(f"[phase2] {name}: card f32 vs CPU f32 max abs err {err:.3e} "
+              f"(max |ref| {scale:.3e}); card bf16 vs CPU f32 {err16:.3e}")
+        check(err <= 1e-3 * scale, f"{name} card f32 matches CPU f32 within 1e-3 * max|ref|")
+        check(bool(torch.isfinite(h).all()), f"{name} bf16 finite")
+
+    # Timings, each tagged with the card. "back-to-back": CUDA events
+    # around 30 batches enqueued without a wait (host enqueue overlaps the
+    # card); "host->host": numpy batch in, detections back on the host,
+    # one batch at a time.
+    for tag, p in (("f32", p32), ("bf16", p16)):
+        fps1 = p.get_fps(images[0], test_interval=50)
+        print(f"[time] {tag} bs1 Predictor.get_fps: {1000 / fps1:.3f} ms/batch, "
+              f"{fps1:.1f} img/s [{card}]")
+        for bs in (1, 8):
+            xb = torch.from_numpy(batch8[:bs]).to(dev)
+            ms_b2b = back_to_back_ms(lambda: p._detect(xb), iters=30)
+
+            def e2e():
+                d, v = p.detect_preprocessed(batch8[:bs])
+                return d.cpu(), v.cpu()
+
+            e2e()
+            t0 = time.perf_counter()
+            n = 20
+            for _ in range(n):
+                e2e()
+            ms_e2e = (time.perf_counter() - t0) * 1000 / n
+            print(f"[time] {tag} bs{bs}: back-to-back {ms_b2b:.3f} ms/batch "
+                  f"({1000 * bs / ms_b2b:.1f} img/s); host->host "
+                  f"{ms_e2e:.3f} ms/batch ({1000 * bs / ms_e2e:.1f} img/s) [{card}]")
+
+    # Where the time goes: device kernel time by name over 5 bf16 bs-8
+    # batches (torch.profiler, CUPTI), against the wall clock.
+    x8d = torch.from_numpy(batch8).to(dev)
+    p16._detect(x8d)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            p16._detect(x8d)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000 / 5
+    # Kernel rows only: an aten op's own row repeats its kernels' time.
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1000 / 5
+    launches = sum(e.count for e in rows) / 5
+    print(f"[profile] bf16 bs8 under the profiler: wall {wall_ms:.3f} ms/batch, device busy "
+          f"{busy_ms:.3f} ms/batch, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{launches:.0f} kernels/batch [{card}]")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[profile]   {e.self_device_time_total / 1000 / 5:8.3f} ms/batch "
+              f"{e.count // 5:5d}x {e.key[:90]}")
+
+    # Kernel time on the main path's own candidates (bf16 preset, bs 8).
+    kb, kv = kernel_inputs["bf16"]
+    kind, thr = pcfg.nms_kind, pcfg.nms_iou
+    ms = cuda_ms(lambda: nms_cuda.nms_keep_sorted(kb, kv, thr, kind), iters=30)
+    plain_ms = cuda_ms(lambda: N.nms_keep_sorted(kb, kv, thr, kind), iters=3, warmup=1)
+    keep_plain = N.nms_keep_sorted(kb, kv, thr, kind)
+    keep_kernel = nms_cuda.nms_keep_sorted(kb, kv, thr, kind)
+    err = float((keep_kernel.float() - keep_plain.float()).abs().max())
+    check(err == 0.0, "kernel == plain on the main path's candidates")
+    worst = max(worst, err)
+    b, k = kv.shape
+    nbytes = b * k * (16 + 1) + b * k  # boxes + valid in, keep out
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nms_ops(kv, keep_plain, kind) / F32_FLOPS * 1e3
+    print(f"[phase3] nms_keep_sorted B={b} K={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bytes bound {bytes_ms:.6f} ms, operations bound {ops_ms:.6f} ms, "
+          f"kept per image {keep_plain.sum(1).tolist()} [{card}]")
+
+    # -- phase 3: the kernels line -------------------------------------------
+    kernels = [{
+        "name": "nms_keep_sorted",
+        "route": "cuda",
+        "source": "jabd_tpu_torch/csrc/nms.cu",
+        "replaces": "jabd_tpu/ops/nms_pallas.py:42",
+        "launches": main_launches,
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
