@@ -7,22 +7,39 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
 
 0. Card: prints `nvidia-smi --query-gpu=name,power.limit` and builds the
    CUDA kernels from csrc/ (one nvcc per source, all at once).
-1. Kernel against its plain version: the NMS kernel and ops/nms.py on the
-   same inputs on the card, B = 8, K = 5000 and 4999, IoU and DIoU,
-   thresholds 0.3 and 0.45, n_valid 0 / 1 / 37 / K, duplicate boxes,
-   zero-area boxes and grid-aligned boxes (exactly tied metrics). Keep
-   masks must be identical.
-2. Slice: jabd_flagship at full width, 640x640, random weights from a
+1. NMS kernel (K1) against its plain version: ops/nms.py on the same
+   inputs on the card, B = 8, K = 5000 and 4999, IoU and DIoU, thresholds
+   0.3 and 0.45, n_valid 0 / 1 / 37 / K, duplicate boxes, zero-area boxes
+   and grid-aligned boxes (exactly tied metrics). Keep masks must be
+   identical.
+2. Serving: jabd_flagship at full width, 640x640, random weights from a
    seeded torch.Generator (random BatchNorm state, NLM output projection
    non-zero), confidence 0.02. With every launch count set to 0 it runs
    Predictor.detect_preprocessed (float32 with TF32 off, and bfloat16 as
    the preset says) on a batch of 8, detect_image on 3 images and a
    BatchingDetector(batch_size=4) answering 8 requests from 4 threads;
-   each path must launch the kernel. Then it checks that the plain NMS
-   gives identical detections on the same head outputs, that the float32
-   heads on the card match the port on the CPU, times the paths and
-   breaks one bf16 batch down by kernel with torch.profiler.
-3. One JSON line of every kernel of the port: launches on the main path,
+   each path must launch K1. Then it checks that the plain NMS gives
+   identical detections on the same head outputs, that the float32 heads
+   on the card match the port on the CPU, times the paths and breaks one
+   bf16 batch down by kernel with torch.profiler.
+3. K1's time on the main path's candidates, and its bound.
+4. Matching kernel (K2) against its plain version (ops/matching.py) at
+   the training shape, B 34, G 128, P 29,126 (840x840): GT counts spread
+   over 0..128 per image, then GTs that are prior boxes (exact ties),
+   duplicate GTs, valid rows that are not a prefix and GT pairs that
+   share a best prior. Outputs must be bit-identical, and so must the
+   MatchResult built on them.
+5. Training (`[train]`): jabd_flagship at 840x840 from the reference's
+   seeded init, seeded synthetic images and targets. Each path runs with
+   every launch count set to 0 and must launch K2: (a) one float32 step
+   (TF32 off) at batch 2 on the card against the same step on the CPU:
+   loss and its three terms within 1e-3; (b) ten bfloat16 steps at batch
+   34 on one batch: the loss finite and lower at the end; (c) `fit` over
+   two epochs (batch 34) across the freeze boundary, then resumed from its
+   checkpoint for a third: checkpoints, metrics.csv rows. Then train-step
+   times and peak memory, a profiler breakdown of bf16 steps, and K2's
+   time and bound on the batch-34 targets.
+6. One JSON line of every kernel of the port: launches on the main paths,
    error against the plain version, times and bound.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
@@ -48,6 +65,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 # Float operations per (kept box i, later valid box j) metric evaluation.
 METRIC_FLOPS = {"iou": 14, "diou": 34}
+# Float operations per (valid GT, prior) IoU of the matching kernel: 2 min,
+# 2 max, 2 subtractions and 2 clamps for the overlap, 1 multiply, 1 add,
+# 1 subtraction, 1 division, 1 compare.
+MATCH_FLOPS = 13
 
 
 def check(cond: bool, what: str) -> None:
@@ -162,6 +183,265 @@ def seeded_state_dict(cfg, seed: int):
     return model.state_dict()
 
 
+# ---------------------------------------------------------------------------
+# Phase 4 and 5 inputs
+# ---------------------------------------------------------------------------
+
+
+def face_rows(rng, counts):
+    """One [n, 15] target per count: corner boxes in [0, 1] (sides 0.02 to
+    0.3), five landmarks inside each, label 1 (80%) or -1."""
+    out = []
+    for n in counts:
+        boxes = np.clip(_random_boxes(rng, int(n)), 0.0, 1.0)
+        rows = np.zeros((int(n), 15), np.float32)
+        rows[:, :4] = boxes
+        u = rng.uniform(0.2, 0.8, (int(n), 5, 2))
+        rows[:, 4:14] = (boxes[:, None, :2] + u * (boxes[:, None, 2:] - boxes[:, None, :2])).reshape(-1, 10)
+        rows[:, 14] = np.where(rng.random(int(n)) < 0.8, 1.0, -1.0)
+        out.append(rows)
+    return out
+
+
+def spread_counts(b, g):
+    """GT counts spread over 0..g: the first image full, the last empty."""
+    return np.linspace(g, 0, b).round().astype(int)
+
+
+def tie_targets(rng, priors, b, g):
+    """A batch of exact-tie cases, one kind per image in turn: GTs that are
+    prior boxes (IoU exactly 1, and equal IoUs with equally placed
+    neighbours), 16 distinct GTs repeated over all rows, valid rows that
+    are not a prefix, and GT pairs that share a best prior (each odd row
+    the even row before it, shifted by 0.003)."""
+    from jabd_tpu_torch.data.wider import batch_targets
+
+    boxes, labels, landms, valid = batch_targets(face_rows(rng, [g] * b), g)
+    corners = np.concatenate([priors[:, :2] - priors[:, 2:] / 2, priors[:, :2] + priors[:, 2:] / 2], 1)
+    for i in range(b):
+        kind = i % 4
+        if kind == 0:
+            boxes[i] = corners[rng.choice(len(priors), g, replace=False)]
+        elif kind == 1:
+            boxes[i] = boxes[i, rng.integers(0, 16, g)]
+        elif kind == 2:
+            valid[i] = rng.random(g) < 0.4
+        else:
+            boxes[i, 1::2] = boxes[i, 0::2] + np.float32(0.003)
+    return boxes, labels, landms, valid
+
+
+class SyntheticFaces:
+    """In-memory training set for `train.fit`: `get(idx, rng)` draws a
+    noise image (as the front end leaves it: mean-subtracted float32 HWC,
+    std 50) and 1..40 face rows from the sample's stream."""
+
+    def __init__(self, n: int, size: int):
+        self.n = n
+        self.size = size
+
+    def __len__(self):
+        return self.n
+
+    def get(self, idx, rng):
+        image = rng.normal(0, 50, (self.size, self.size, 3)).astype(np.float32)
+        return image, face_rows(rng, [1 + idx % 40])[0]
+
+
+def to_targets(arrays, dev):
+    from jabd_tpu_torch.losses import Targets
+
+    return Targets(*(torch.from_numpy(a).to(dev) for a in arrays))
+
+
+def reset_counts():
+    from jabd_tpu_torch.ops import matching_cuda, nms_cuda
+
+    nms_cuda.nms_keep_sorted.launches = 0
+    matching_cuda.match_front.launches = 0
+
+
+def matching_phase(dev, priors_np):
+    """K2 against the plain front half on the card at B 34, G 128 and the
+    840x840 priors. Returns the largest |kernel - plain| over all outputs."""
+    from jabd_tpu_torch.data.wider import batch_targets
+    from jabd_tpu_torch.ops import matching as M
+    from jabd_tpu_torch.ops import matching_cuda
+
+    rng = np.random.default_rng(4)
+    b, g = 34, 128
+    priors = torch.from_numpy(priors_np).to(dev)
+    cases = [
+        ("spread 0..128", batch_targets(face_rows(rng, spread_counts(b, g)), g)),
+        ("ties", tie_targets(rng, priors_np, b, g)),
+    ]
+    worst = 0.0
+    for name, arrays in cases:
+        t = to_targets(arrays, dev)
+        got = matching_cuda.match_front(t.boxes, priors, t.valid)
+        want = M.match_front_plain(t.boxes, priors, t.valid)
+        torch.cuda.synchronize()
+        mism = [int((x != y).sum()) for x, y in zip(got, want)]
+        bits = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+        err = max(float((x.double() - y.double()).abs().max()) for x, y in zip(got, want))
+        worst = max(worst, err)
+        args = (0.35, t.boxes, priors, (0.1, 0.2), t.labels, t.landms, t.valid)
+        r_k = M.match_batch(*args, front=matching_cuda.match_front)
+        r_p = M.match_batch(*args, front=M.match_front_plain)
+        same = all(torch.equal(x, y) for x, y in zip(r_k, r_p))
+        counts = t.valid.sum(1)
+        print(f"[phase4] K2 {name}: B={b} G={g} P={priors.shape[0]}, valid GTs per image "
+              f"min {int(counts.min())} max {int(counts.max())} total {int(counts.sum())}; "
+              f"mismatches (overlap, idx, best prior) {mism}, overlaps bit-identical {bits}, "
+              f"MatchResult identical {same}, positives {int((r_k.conf_t != 0).sum())}")
+        check(mism == [0, 0, 0] and bits and same, f"K2 == plain on {name}")
+    return worst
+
+
+def train_phase(card, dev, preset):
+    """Drive the training path (see the module docstring, phase 5) and
+    return K2's kernels-line numbers."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from jabd_tpu_torch import configs
+    from jabd_tpu_torch import train as T
+    from jabd_tpu_torch.data.wider import batch_targets
+    from jabd_tpu_torch.ops import anchors as A
+    from jabd_tpu_torch.ops import matching as M
+    from jabd_tpu_torch.ops import matching_cuda
+    from jabd_tpu_torch.utils.checkpoint import CheckpointManager
+
+    counter = matching_cuda.match_front
+    tcfg = configs.TrainConfig()
+    size, bsz, g = tcfg.image_size, tcfg.batch_size, tcfg.max_targets
+    anchors_np = A.generate_anchors(preset.anchors, (size, size)).copy()
+    anchors = torch.from_numpy(anchors_np).to(dev)
+    cfg32 = dataclasses.replace(preset, compute_dtype="float32")
+    rng = np.random.default_rng(5)
+    launches = {}
+
+    def driven(name, fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = counter.launches
+        check(counter.launches > 0, f"{name} launched K2")
+        return out
+
+    # (a) float32, batch 2: the card against the CPU from the same weights.
+    images2 = rng.normal(0, 50, (2, size, size, 3)).astype(np.float32)
+    targets2 = batch_targets(face_rows(rng, [37, 5]), g)
+    s_gpu = T.create_train_state(cfg32, tcfg, 1, freeze_backbone=False, device=dev)
+    s_cpu = T.create_train_state(cfg32, tcfg, 1, freeze_backbone=False, device="cpu")
+    cpu_sd = s_cpu.model.state_dict()
+    check(all(torch.equal(v.cpu(), cpu_sd[k]) for k, v in s_gpu.model.state_dict().items()),
+          "card and CPU start from the same seeded weights")
+    step32 = T.make_train_step(cfg32, tcfg)
+    _, m_gpu = driven("train_step f32 bs2", lambda: step32(
+        s_gpu, torch.from_numpy(images2).to(dev), to_targets(targets2, dev), anchors))
+    t0 = time.perf_counter()
+    _, m_cpu = step32(s_cpu, torch.from_numpy(images2), to_targets(targets2, "cpu"),
+                      torch.from_numpy(anchors_np))
+    cpu_s = time.perf_counter() - t0
+    for k in ("loss", "loss_l", "loss_c", "loss_landm"):
+        got, want = float(m_gpu[k]), float(m_cpu[k])
+        rel = abs(got - want) / max(abs(want), 1e-12)
+        print(f"[train] (a) f32 bs2 {k}: card {got:.7f} CPU {want:.7f} rel err {rel:.3e}")
+        check(np.isfinite(got) and rel <= 1e-3, f"{k} card f32 matches CPU f32 within 1e-3")
+    print(f"[train] (a) the CPU step took {cpu_s:.1f} s")
+    del s_gpu, s_cpu
+
+    # (b) bfloat16 (the preset), batch 34, ten steps on one batch.
+    images34 = torch.from_numpy(rng.normal(0, 50, (bsz, size, size, 3)).astype(np.float32)).to(dev)
+    arrays34 = batch_targets(face_rows(rng, np.maximum(spread_counts(bsz, g), 1)), g)
+    targets34 = to_targets(arrays34, dev)
+    s16 = T.create_train_state(preset, tcfg, 1, freeze_backbone=False, device=dev)
+    step16 = T.make_train_step(preset, tcfg)
+    losses16 = driven("train_step bf16 bs34 x10", lambda: [
+        step16(s16, images34, targets34, anchors)[1]["loss"] for _ in range(10)])
+    vals = [float(v) for v in losses16]
+    print(f"[train] (b) bf16 bs34 losses over 10 steps {[round(v, 4) for v in vals]}")
+    check(all(np.isfinite(vals)) and vals[-1] < vals[0], "bf16 loss finite and lower after 10 steps")
+
+    # (c) fit: two epochs across the freeze boundary, then resumed.
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = SyntheticFaces(bsz, size)
+        fcfg = dataclasses.replace(tcfg, freeze_epochs=1, total_epochs=2, save_period=1)
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+        log_dir = os.path.join(tmp, "logs")
+        st = driven("fit 2 epochs", lambda: T.fit(preset, fcfg, ds, log_dir=log_dir,
+                                                  checkpoint_manager=mgr, device=dev))
+        check(mgr.latest_step() == 2 and st.step == 2, "fit: checkpoints 1 and 2, 2 steps")
+        st = driven("fit resumed to epoch 3", lambda: T.fit(
+            preset, dataclasses.replace(fcfg, total_epochs=3), ds, log_dir=log_dir,
+            checkpoint_manager=mgr, device=dev))
+        rows = open(os.path.join(log_dir, "metrics.csv")).read().splitlines()
+        print(f"[train] (c) fit checkpoints {mgr.all_steps()}, step {st.step}, metrics.csv {rows[1:]}")
+        check(mgr.latest_step() == 3 and st.step == 3 and len(rows) == 4, "fit resumed: epoch 3")
+        check(all(np.isfinite(float(r.split(",")[2])) for r in rows[1:]), "fit losses finite")
+        del st
+    print(f"[train] K2 launches per path {launches}")
+    torch.cuda.empty_cache()
+
+    # Train-step time and peak memory, batch 34, back to back.
+    s32 = T.create_train_state(cfg32, tcfg, 1, freeze_backbone=False, device=dev)
+    for tag, state, step in (("bf16", s16, step16), ("f32", s32, step32)):
+        torch.cuda.reset_peak_memory_stats()
+        ms = back_to_back_ms(lambda: step(state, images34, targets34, anchors), iters=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[time] train step {tag} bs{bsz} {size}x{size}: back-to-back {ms:.3f} ms/step "
+              f"({1000 * bsz / ms:.1f} img/s), peak memory {peak:.2f} GiB [{card}]")
+    del s32
+    torch.cuda.empty_cache()
+
+    # Where the time of a bf16 step goes: device time by kernel over 3 steps.
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    step16(s16, images34, targets34, anchors)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step16(s16, images34, targets34, anchors)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000 / 3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1000 / 3
+    print(f"[profile] train step bf16 bs{bsz} under the profiler: wall {wall_ms:.3f} ms/step, "
+          f"device busy {busy_ms:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{sum(e.count for e in rows) / 3:.0f} kernels/step [{card}]")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"[profile]   {e.self_device_time_total / 1000 / 3:8.3f} ms/step "
+              f"{e.count // 3:5d}x {e.key[:90]}")
+
+    # K2 on the batch-34 targets: time, plain time, bound.
+    boxes, valid = targets34.boxes, targets34.valid
+    ms = cuda_ms(lambda: matching_cuda.match_front(boxes, anchors, valid), iters=50)
+    plain_ms = cuda_ms(lambda: M.match_front_plain(boxes, anchors, valid), iters=10)
+    got = matching_cuda.match_front(boxes, anchors, valid)
+    want = M.match_front_plain(boxes, anchors, valid)
+    err = max(float((x.double() - y.double()).abs().max()) for x, y in zip(got, want))
+    check(err == 0.0, "K2 == plain on the training batch's targets")
+    p = anchors.shape[0]
+    nbytes = (boxes.numel() * 4 + valid.numel() + anchors.numel() * 4  # in
+              + bsz * p * (4 + 8) + bsz * g * 8)  # out: overlap f32, idx and best prior int64
+    n_valid = int(valid.sum())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = MATCH_FLOPS * n_valid * p / F32_FLOPS * 1e3
+    print(f"[train] K2 match_front B={bsz} G={g} P={p}, {n_valid} valid GTs: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bytes bound {bytes_ms:.6f} ms, operations bound "
+          f"{ops_ms:.6f} ms [{card}]")
+    return {
+        "launches": sum(launches.values()),
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -230,7 +510,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     counter = nms_cuda.nms_keep_sorted
-    counter.launches = 0
+    reset_counts()
     per_path = {}
 
     def counted(name, fn):
@@ -370,7 +650,13 @@ def main() -> int:
           f"bytes bound {bytes_ms:.6f} ms, operations bound {ops_ms:.6f} ms, "
           f"kept per image {keep_plain.sum(1).tolist()} [{card}]")
 
-    # -- phase 3: the kernels line -------------------------------------------
+    # -- phases 4 and 5: matching kernel, training path ----------------------
+    anchors840 = A.generate_anchors(preset.anchors, (840, 840)).copy()
+    k2_worst = matching_phase(dev, anchors840)
+    k2 = train_phase(card, dev, preset)
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_worst)
+
+    # -- phase 6: the kernels line -------------------------------------------
     kernels = [{
         "name": "nms_keep_sorted",
         "route": "cuda",
@@ -382,6 +668,15 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }, {
+        "name": "match_front",
+        "route": "cuda",
+        "source": "jabd_tpu_torch/csrc/matching.cu",
+        "replaces": "jabd_tpu/ops/matching_pallas.py:37",
+        **k2,
+        # No single torch call computes the front half (per-prior best GT
+        # and per-GT best prior over the IoU matrix).
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -21,7 +21,7 @@ from typing import Dict, List
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernel_build"
-SOURCES = ("nms",)
+SOURCES = ("nms", "matching")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",

@@ -1,10 +1,10 @@
 """Configuration tree of the PyTorch port: its own copy of the JAX
 package's `jabd_tpu/configs.py` (AnchorConfig, NLMConfig, ModelConfig,
-PredictConfig, the anchor presets, MODEL_PRESETS, get_model_config).
+TrainConfig, PredictConfig, the anchor presets, MODEL_PRESETS,
+get_model_config).
 
 Standard library only. The port keeps a copy instead of importing the JAX
-package, so that it runs where JAX is not installed. TrainConfig joins it
-with the training slice.
+package, so that it runs where JAX is not installed.
 """
 
 from __future__ import annotations
@@ -120,6 +120,52 @@ class ModelConfig:
     def leaky_slope(self) -> float:
         return 0.1 if self.out_channels <= 64 else 0.0
 
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters.
+
+    Reference: two-phase loop in `train_mobilenetV3_ecagai.py:553-615`
+    (Adam lr 1e-3 freeze / 1e-4 unfreeze, weight decay 5e-4, StepLR
+    gamma 0.92/epoch), MultiBoxLoss(2, 0.35, 7) at :475, loc_weight 2.0.
+    Every field and default of the JAX package's TrainConfig; the port's
+    `train.py` raises NotImplementedError for `remat`, `microbatches > 1`,
+    `device_augment` and `fsdp`, which later slices bring.
+    """
+
+    batch_size: int = 34
+    image_size: int = 840
+    freeze_epochs: int = 50
+    total_epochs: int = 100
+    lr_freeze: float = 1e-3
+    lr_unfreeze: float = 1e-4
+    lr_gamma: float = 0.92
+    weight_decay: float = 5e-4
+    overlap_threshold: float = 0.35
+    neg_pos_ratio: int = 7
+    loc_weight: float = 2.0
+    num_classes: int = 2
+    max_targets: int = 128  # padded GT boxes per image
+    save_period: int = 5
+    seed: int = 0
+    # Recompute the forward pass in backward (activation memory for FLOPs).
+    remat: bool = False
+    # Microbatches per step (ghost BatchNorm, averaged gradients).
+    microbatches: int = 1
+    # Augmentation on the device instead of the host.
+    device_augment: bool = False
+    # Static uint8 source bucket (H, W) for device augmentation.
+    augment_bucket: Tuple[int, int] = (1024, 1024)
+    # From-scratch init of the reference (weights_init(net, 'normal',
+    # 0.02), retinaface_training.py:305-324): 'normal' | 'xavier' |
+    # 'kaiming' | 'orthogonal', or 'none' for torch's module defaults.
+    weights_init: str = "normal"
+    # Anchor matching inside the loss: 'auto' (the CUDA kernel on a CUDA
+    # tensor, the plain version on a CPU tensor), 'cuda' (the kernel;
+    # raises on a CPU tensor) or 'plain' (the dense torch version).
+    matching_impl: str = "auto"
+    # Parameters and Adam moments sharded over the data mesh.
+    fsdp: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -80,6 +80,36 @@ def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> nn.Conv2d:
 # ---------------------------------------------------------------------------
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose running variance follows flax's BatchNorm.
+
+    Both normalize a training batch with its biased variance and keep
+    running = (1 - m) * running + m * batch (flax momentum 0.9 is torch
+    momentum 0.1). torch folds the UNBIASED batch variance (x n / (n - 1),
+    n = B*H*W) into running_var, flax the biased one. After torch's own
+    update the batch term m * var_u is running_var' - (1 - m) * running_var,
+    and m * var_b is that times (n - 1) / n; so the correction costs a few
+    C-sized ops and no pass over the activations. Only training mode
+    differs from nn.BatchNorm2d."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=0.1)
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        old_var = self.running_var.clone()
+        y = super().forward(x)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            batch_term = self.running_var - (1.0 - self.momentum) * old_var
+            # A new tensor, not an in-place update: autograd saved the
+            # buffer torch just updated with the batch-norm node.
+            self.running_var = self.running_var - batch_term / n
+        return y
+
+
+
 class ConvBN(nn.Module):
     """Conv2d(bias=False) + BatchNorm + activation.
 
@@ -101,7 +131,7 @@ class ConvBN(nn.Module):
             cin, cout, kernel, stride=stride, padding=kernel // 2,
             groups=groups, bias=False,
         )
-        self.bn: Optional[nn.BatchNorm2d] = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn: Optional[nn.BatchNorm2d] = BatchNorm2d(cout)
         self.act = act
 
     def fold_(self) -> None:
@@ -156,7 +186,7 @@ class SEModule(nn.Module):
         super().__init__()
         e = max(channels // reduction, 8)
         self.fc1 = nn.Conv2d(channels, e, 1, bias=False)
-        self.bn: Optional[nn.BatchNorm2d] = nn.BatchNorm2d(e, eps=BN_EPS)
+        self.bn: Optional[nn.BatchNorm2d] = BatchNorm2d(e)
         self.fc2 = nn.Conv2d(e, channels, 1, bias=False)
 
     def fold_(self) -> None:

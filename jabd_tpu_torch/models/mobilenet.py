@@ -8,7 +8,7 @@ from typing import Optional, Sequence, Tuple
 import torch.nn as nn
 import torch.nn.functional as F
 
-from jabd_tpu_torch.models.layers import BN_EPS, ECA, ConvBN, SEModule, fold_conv_bn, hswish
+from jabd_tpu_torch.models.layers import ECA, BatchNorm2d, ConvBN, SEModule, fold_conv_bn, hswish
 
 
 class MNV3Block(nn.Module):
@@ -52,7 +52,7 @@ class MNV3Block(nn.Module):
             self.skip_dw = ConvBN(in_size, in_size, 3, stride=2, groups=in_size, act="none")
             if in_size != out:
                 self.skip_pw = nn.Conv2d(in_size, out, 1, bias=True)
-                self.skip_pw_bn = nn.BatchNorm2d(out, eps=BN_EPS)
+                self.skip_pw_bn = BatchNorm2d(out)
 
     def fold_(self) -> None:
         if self.skip_pw_bn is not None:

@@ -8,7 +8,9 @@
 Input is NCHW; head rows are in the JAX package's NHWC flatten order.
 The graph computes in the dtype of its parameters: float32 as built, or
 bfloat16 once the caller casts the module (`Predictor` does so for
-`compute_dtype="bfloat16"`, after folding the BatchNorms).
+`compute_dtype="bfloat16"`, after folding the BatchNorms). Training keeps
+float32 parameters and runs the forward under torch.autocast instead
+(`train.make_train_step`).
 """
 
 from __future__ import annotations

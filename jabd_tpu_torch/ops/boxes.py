@@ -1,6 +1,7 @@
-"""Box form conversion and the SSD decode, on torch tensors [..., N, 4].
+"""Box geometry and the SSD codec, on torch tensors [..., N, 4].
 
-Port of `point_form`, `decode` and `decode_landm` of
+Port of `point_form`, `intersect`, `area`, `jaccard`, `elementwise_diou`,
+`encode`, `decode`, `encode_landm`, `decode_landm` and `log_sum_exp` of
 `jabd_tpu/ops/boxes.py`, with the same operation order so that float32
 results agree to rounding.
 """
@@ -39,3 +40,74 @@ def decode_landm(
     p_wh = priors[..., None, 2:]
     out = p_cxy + pts * variances[0] * p_wh
     return out.reshape(*pre.shape[:-1], 10)
+
+
+def intersect(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise intersection area of corner-form boxes:
+    [..., A, 4] x [..., B, 4] -> [..., A, B]."""
+    max_xy = torch.minimum(box_a[..., :, None, 2:], box_b[..., None, :, 2:])
+    min_xy = torch.maximum(box_a[..., :, None, :2], box_b[..., None, :, :2])
+    inter = torch.clamp(max_xy - min_xy, min=0.0)
+    return inter[..., 0] * inter[..., 1]
+
+
+def area(boxes: torch.Tensor) -> torch.Tensor:
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def jaccard(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU [..., A, B] of corner-form boxes."""
+    inter = intersect(box_a, box_b)
+    union = area(box_a)[..., :, None] + area(box_b)[..., None, :] - inter
+    return inter / union
+
+
+def elementwise_diou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """DIoU of matched corner-form box pairs, [..., 4] x [..., 4] -> [...]
+    (the DIoU regression loss, retinaface_training_DIOU.py:491-522)."""
+    max_xy = torch.minimum(boxes_a[..., 2:], boxes_b[..., 2:])
+    min_xy = torch.maximum(boxes_a[..., :2], boxes_b[..., :2])
+    inter_wh = torch.clamp(max_xy - min_xy, min=0.0)
+    inter = inter_wh[..., 0] * inter_wh[..., 1]
+    union = area(boxes_a) + area(boxes_b) - inter
+    iou = inter / torch.clamp(union, min=1e-7)
+
+    enc_min = torch.minimum(boxes_a[..., :2], boxes_b[..., :2])
+    enc_max = torch.maximum(boxes_a[..., 2:], boxes_b[..., 2:])
+    enc_wh = torch.clamp(enc_max - enc_min, min=0.0)
+    c2 = torch.sum(enc_wh**2, dim=-1)
+    ctr_a = (boxes_a[..., :2] + boxes_a[..., 2:]) / 2
+    ctr_b = (boxes_b[..., :2] + boxes_b[..., 2:]) / 2
+    d2 = torch.sum((ctr_a - ctr_b) ** 2, dim=-1)
+    return iou - d2 / torch.clamp(c2, min=1e-7)
+
+
+def encode(
+    matched: torch.Tensor, priors: torch.Tensor, variances: Tuple[float, float]
+) -> torch.Tensor:
+    """Matched corner-form boxes against cxcywh priors -> loc targets.
+    Widths below 1e-12 of the prior's are clamped before the log, so a
+    degenerate (zero-area) box gives a finite target."""
+    g_cxcy = (matched[..., :2] + matched[..., 2:]) / 2 - priors[..., :2]
+    g_cxcy = g_cxcy / (variances[0] * priors[..., 2:])
+    g_wh = (matched[..., 2:] - matched[..., :2]) / priors[..., 2:]
+    g_wh = torch.log(torch.clamp(g_wh, min=1e-12)) / variances[1]
+    return torch.cat([g_cxcy, g_wh], dim=-1)
+
+
+def encode_landm(
+    matched: torch.Tensor, priors: torch.Tensor, variances: Tuple[float, float]
+) -> torch.Tensor:
+    """[..., 10] landmark coords (5 points) against priors."""
+    pts = matched.reshape(*matched.shape[:-1], 5, 2)
+    p_cxy = priors[..., None, :2]
+    p_wh = priors[..., None, 2:]
+    g = (pts - p_cxy) / (variances[0] * p_wh)
+    return g.reshape(*matched.shape[:-1], 10)
+
+
+def log_sum_exp(x: torch.Tensor) -> torch.Tensor:
+    """log(sum(exp(x))) over the last axis, keepdim, shifted by the max
+    (`amax`: on ties its gradient is shared, as jnp.max's is)."""
+    x_max = torch.amax(x, dim=-1, keepdim=True)
+    return torch.log(torch.sum(torch.exp(x - x_max), dim=-1, keepdim=True)) + x_max

@@ -1,0 +1,317 @@
+"""Training: optimizer, schedule, train step and the two-phase fit loop.
+
+Port of `jabd_tpu/train.py` for one device. The reference's recipe
+(train_mobilenetV3_ecagai.py:436-615, utils/utils_fit_change.py:11-64):
+
+  * two phases, "freeze" (lr 1e-3, backbone frozen, epochs 0..freeze) and
+    "unfreeze" (lr 1e-4), each with a FRESH Adam(weight_decay=5e-4) and
+    StepLR(gamma=0.92) per epoch;
+  * MultiBoxLoss(2, 0.35, 7), total = 2.0 * loc + conf + landm;
+  * a checkpoint every save_period epochs.
+
+torch's Adam(weight_decay) adds the L2 term to the gradient before the
+moments, which is what the JAX package's optax.add_decayed_weights before
+scale_by_adam computes. A frozen backbone has requires_grad False: it gets
+no gradient, so Adam neither updates nor decays it (optax.set_to_zero),
+while its BatchNorm statistics still update in the train-mode forward.
+
+The step runs eagerly and updates the state in place (model parameters,
+BatchNorm buffers, Adam moments); it returns the state as the JAX step
+returns its new one. With `compute_dtype="bfloat16"` the forward runs
+under torch.autocast: parameters and Adam stay float32, convolutions and
+matmuls run in bfloat16, the heads are cast to float32 and the loss is
+float32, as flax computes with dtype=bfloat16 over float32 parameters.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from jabd_tpu_torch import configs, losses, resolve_device
+from jabd_tpu_torch.models import build_model
+from jabd_tpu_torch.models.init import reference_weights_init
+from jabd_tpu_torch.ops import anchors as A
+
+
+def check_supported(train_cfg: configs.TrainConfig) -> None:
+    """Raise NotImplementedError for a TrainConfig option the port has
+    not brought yet; it never runs something else in its place."""
+    later = []
+    if train_cfg.microbatches > 1:
+        later.append("microbatches > 1 (ghost BatchNorm): a later part of slice 2")
+    if train_cfg.remat:
+        later.append("remat (torch.utils.checkpoint): a later part of slice 2")
+    if train_cfg.device_augment:
+        later.append("device_augment (data/device_augment.py): a later part of slice 2")
+    if train_cfg.fsdp:
+        later.append("fsdp: the parallelism slice (slice 6)")
+    if later:
+        raise NotImplementedError(
+            "the PyTorch port does not have yet: " + "; ".join(later)
+        )
+
+
+def step_lr(lr: float, steps_per_epoch: int, gamma: float, count: int) -> float:
+    """StepLR once per epoch, per update: update `count` (from 0) uses
+    lr * gamma ** floor(count / steps_per_epoch), as
+    optax.exponential_decay(staircase=True) does."""
+    return lr * gamma ** (count // max(steps_per_epoch, 1))
+
+
+def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, weight_decay: float = 5e-4):
+    """torch Adam with L2 weight decay into the gradient."""
+    return torch.optim.Adam(
+        params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
+    )
+
+
+def freeze_backbone(model: torch.nn.Module, freeze: bool) -> None:
+    """requires_grad False on the backbone (train script :576-578), or
+    True again."""
+    for p in model.backbone.parameters():
+        p.requires_grad_(not freeze)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Model, optimizer and schedule of one training phase.
+
+    `step` counts every update since the start; `count` the updates of
+    this phase's optimizer, which the schedule reads (the JAX package's
+    ScaleByScheduleState count)."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    lr: float
+    steps_per_epoch: int
+    gamma: float
+    step: int = 0
+    count: int = 0
+
+    def lr_at(self, count: int) -> float:
+        return step_lr(self.lr, self.steps_per_epoch, self.gamma, count)
+
+    def apply_gradients(self) -> None:
+        """One Adam update with the gradients in `.grad`, at the lr of
+        the schedule's current count."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_at(self.count)
+        self.optimizer.step()
+        self.count += 1
+        self.step += 1
+
+    def state_dict(self) -> Dict:
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+            "count": self.count,
+        }
+
+    def load_state_dict(self, payload: Dict) -> None:
+        self.model.load_state_dict(payload["model"])
+        self.optimizer.load_state_dict(payload["optimizer"])
+        self.step = int(payload["step"])
+        self.count = int(payload["count"])
+
+
+def new_phase(state: TrainState, lr: float, freeze: bool, weight_decay: float) -> TrainState:
+    """Start a phase: (un)freeze the backbone and give the state a fresh
+    optimizer at `lr` with its schedule count at 0 (reference :564,596)."""
+    freeze_backbone(state.model, freeze)
+    state.optimizer = make_optimizer(state.model.parameters(), lr, weight_decay)
+    state.lr = lr
+    state.count = 0
+    return state
+
+
+def create_train_state(
+    model_cfg: configs.ModelConfig,
+    train_cfg: configs.TrainConfig,
+    steps_per_epoch: int,
+    lr: Optional[float] = None,
+    freeze_backbone: bool = False,
+    device=None,
+) -> TrainState:
+    """A train-mode model with the reference's from-scratch init (drawn on
+    the CPU from a torch.Generator seeded with train_cfg.seed), moved to
+    `device` (the card unless given), and a fresh optimizer."""
+    dev = resolve_device(device)
+    model = build_model(model_cfg, mode="train", device="cpu")
+    reference_weights_init(
+        model, torch.Generator().manual_seed(train_cfg.seed), train_cfg.weights_init
+    )
+    model.to(dev)
+    state = TrainState(
+        model=model,
+        optimizer=None,
+        lr=0.0,
+        steps_per_epoch=steps_per_epoch,
+        gamma=train_cfg.lr_gamma,
+    )
+    return new_phase(state, lr or train_cfg.lr_freeze, freeze_backbone, train_cfg.weight_decay)
+
+
+def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConfig):
+    """step(state, images [B, H, W, 3] float32, targets, anchors [P, 4])
+    -> (state, metrics): train-mode forward -> multibox_loss ->
+    total_loss -> backward -> Adam update. Images, targets and anchors lie
+    on the model's device. Metrics are 0-d device tensors: loss, loss_l,
+    loss_c, loss_landm. The gradients stay in the parameters' `.grad`
+    until the next step."""
+    check_supported(train_cfg)
+    bf16 = model_cfg.compute_dtype == "bfloat16"
+
+    def step(state: TrainState, images: torch.Tensor, targets: losses.Targets, anchors: torch.Tensor):
+        model = state.model
+        model.train()
+        x = images.permute(0, 3, 1, 2)
+        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+            out = model(x)
+        parts = losses.multibox_loss(
+            out,
+            anchors,
+            targets,
+            overlap_threshold=train_cfg.overlap_threshold,
+            neg_pos_ratio=train_cfg.neg_pos_ratio,
+            variances=model_cfg.anchors.variance,
+            box_loss=model_cfg.box_loss,
+            matching_impl=train_cfg.matching_impl,
+        )
+        loss = losses.total_loss(parts, train_cfg.loc_weight)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+        return state, metrics
+
+    return step
+
+
+def fit(
+    model_cfg: configs.ModelConfig,
+    train_cfg: configs.TrainConfig,
+    dataset,
+    log_dir: str = "logs",
+    checkpoint_manager=None,
+    start_epoch: int = 0,
+    init_state: Optional[TrainState] = None,
+    device=None,
+) -> TrainState:
+    """The two-phase loop (freeze -> unfreeze) of
+    train_mobilenetV3_ecagai.py:553-615 on `device` (the card unless
+    given). Appends one row per epoch to `<log_dir>/metrics.csv`, resumes
+    from the latest checkpoint of `checkpoint_manager` (optimizer
+    included) and always saves the final state. Returns the TrainState."""
+    from jabd_tpu_torch.data.wider import train_loader
+    from jabd_tpu_torch.utils.logging import LossHistory
+
+    step_fn = make_train_step(model_cfg, train_cfg)  # raises for unported options
+    dev = resolve_device(device)
+    steps_per_epoch = max(len(dataset) // train_cfg.batch_size, 1)
+    size = (train_cfg.image_size, train_cfg.image_size)
+    anchors = torch.from_numpy(A.generate_anchors(model_cfg.anchors, size).copy()).to(dev)
+    history = LossHistory(log_dir)
+    metrics_path = os.path.join(log_dir, "metrics.csv")
+    os.makedirs(log_dir, exist_ok=True)
+    if not os.path.exists(metrics_path):
+        with open(metrics_path, "w") as f:
+            f.write("epoch,step,loss,loss_l,loss_c,loss_landm,lr\n")
+
+    state = init_state
+    resume_phase_freeze = None
+    just_resumed = False
+    if (
+        state is None
+        and checkpoint_manager is not None
+        and checkpoint_manager.latest_step() is not None
+    ):
+        resumed_epoch = checkpoint_manager.latest_step()
+        # The checkpoint of step s was written by epoch s - 1, so it
+        # belongs to the freeze phase iff s - 1 < freeze_epochs (also the
+        # one saved exactly at the boundary).
+        resume_phase_freeze = (resumed_epoch - 1) < train_cfg.freeze_epochs
+        template = create_train_state(
+            model_cfg,
+            train_cfg,
+            steps_per_epoch,
+            lr=train_cfg.lr_freeze if resume_phase_freeze else train_cfg.lr_unfreeze,
+            freeze_backbone=resume_phase_freeze,
+            device=dev,
+        )
+        state = checkpoint_manager.restore(template)
+        start_epoch = max(start_epoch, resumed_epoch)
+        just_resumed = True
+        print(f"resumed from checkpoint at epoch {resumed_epoch}")
+
+    phase_bounds = [
+        (start_epoch, train_cfg.freeze_epochs, train_cfg.lr_freeze, True),
+        (
+            max(train_cfg.freeze_epochs, start_epoch),
+            train_cfg.total_epochs,
+            train_cfg.lr_unfreeze,
+            False,
+        ),
+    ]
+    for first, last, lr, freeze in phase_bounds:
+        if first >= last:
+            if just_resumed and freeze == resume_phase_freeze:
+                # The restored phase is complete (a boundary resume): the
+                # next phase builds its optimizer fresh.
+                just_resumed = False
+            continue
+        if state is None:
+            state = create_train_state(
+                model_cfg, train_cfg, steps_per_epoch, lr=lr,
+                freeze_backbone=freeze, device=dev,
+            )
+        elif just_resumed:
+            just_resumed = False  # mid-phase resume keeps the restored optimizer
+        else:
+            new_phase(state, lr, freeze, train_cfg.weight_decay)
+
+        for epoch in range(first, last):
+            t0 = time.time()
+            cur_lr = state.lr_at(state.count)  # the epoch's first update
+            step_metrics = []  # device tensors: one host sync per epoch
+            for images, arrays in train_loader(
+                dataset,
+                train_cfg.batch_size,
+                max_targets=train_cfg.max_targets,
+                seed=train_cfg.seed + epoch,
+            ):
+                images = torch.from_numpy(images.astype(np.float32, copy=False)).to(dev)
+                targets = losses.Targets(*(torch.from_numpy(a).to(dev) for a in arrays))
+                state, metrics = step_fn(state, images, targets, anchors)
+                step_metrics.append(metrics)
+            nsteps = len(step_metrics)
+            means = {
+                k: float(torch.stack([m[k] for m in step_metrics]).mean()) if nsteps else 0.0
+                for k in ("loss", "loss_l", "loss_c", "loss_landm")
+            }
+            history.append_loss(means["loss"])
+            with open(metrics_path, "a") as f:
+                f.write(
+                    f"{epoch + 1},{state.step},{means['loss']:.6f},"
+                    f"{means['loss_l']:.6f},{means['loss_c']:.6f},"
+                    f"{means['loss_landm']:.6f},{cur_lr:.8f}\n"
+                )
+            print(
+                f"epoch {epoch + 1}/{last} loss={means['loss']:.4f} lr={cur_lr:.6f} "
+                f"({time.time() - t0:.1f}s, {nsteps} steps)"
+            )
+            if checkpoint_manager is not None and (epoch + 1) % train_cfg.save_period == 0:
+                checkpoint_manager.save(epoch + 1, state)
+    if (
+        checkpoint_manager is not None
+        and state is not None
+        and checkpoint_manager.latest_step() != train_cfg.total_epochs
+    ):
+        checkpoint_manager.save(train_cfg.total_epochs, state)
+    return state

@@ -1,1 +1,2 @@
-"""Utilities of the port (weight conversion from the JAX package)."""
+"""Utilities of the port: weight conversion from and to the JAX package's
+variables, checkpoints, the training loss log."""

@@ -1,7 +1,9 @@
-"""Weights carried across from the JAX package.
+"""Weights carried between the JAX package and the port.
 
 `state_dict_from_flax` turns the JAX package's `{"params", "batch_stats"}`
-variables, as nested dicts of numpy arrays, into the port's state dict.
+variables, as nested dicts of numpy arrays, into the port's state dict;
+`flax_from_state_dict` goes back (so that parameters, gradients and
+BatchNorm statistics after a train step can be compared leaf by leaf).
 The port's module names mirror the flax paths, so the walk is mechanical:
 
   conv kernel HWIO (k, k, I, O)    -> weight OIHW   (depthwise (k,k,1,C) -> (C,1,k,k))
@@ -62,3 +64,42 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     for module in bn_paths:
         out[".".join(module + ("num_batches_tracked",))] = torch.zeros((), dtype=torch.int64)
     return out
+
+
+def _conv_kernel(weight: np.ndarray) -> np.ndarray:
+    if weight.ndim == 4:  # (O, I, H, W) -> (H, W, I, O)
+        return weight.transpose(2, 3, 1, 0)
+    if weight.ndim == 3:  # (O, I, W) -> (W, I, O)
+        return weight.transpose(2, 1, 0)
+    raise ValueError(f"unexpected conv weight rank {weight.ndim}")
+
+
+def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """State dict (or a dict of gradients under the same keys) ->
+    {"params": ..., "batch_stats": ...} as nested dicts of float32 numpy
+    arrays: the inverse of `state_dict_from_flax`. A module with a
+    running_mean is a BatchNorm; `num_batches_tracked` is dropped."""
+    bn_modules = {k.rsplit(".", 1)[0] for k in state if k.endswith(".running_mean")}
+    params: Dict = {}
+    stats: Dict = {}
+    inverse_bn = {v: k for k, v in {**_BN_PARAMS, **_BN_STATS}.items()}
+    for key, value in state.items():
+        module, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        array = value.detach().cpu().float().numpy()
+        tree = params
+        if module in bn_modules:
+            tree = stats if leaf in _BN_STATS.values() else params
+            name = inverse_bn[leaf]
+        elif leaf == "weight":
+            name, array = "kernel", _conv_kernel(array)
+        elif leaf == "bias":
+            name = "bias"
+        else:
+            raise ValueError(f"unexpected state dict entry {key}")
+        node = tree
+        for part in module.split("."):
+            node = node.setdefault(part, {})
+        node[name] = array
+    return {"params": params, "batch_stats": stats}

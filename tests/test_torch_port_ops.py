@@ -29,21 +29,43 @@ PORT_MODULES = [
     "jabd_tpu_torch",
     "jabd_tpu_torch._build",
     "jabd_tpu_torch.configs",
+    "jabd_tpu_torch.data",
+    "jabd_tpu_torch.data.wider",
+    "jabd_tpu_torch.losses",
     "jabd_tpu_torch.models",
     "jabd_tpu_torch.models.fold",
+    "jabd_tpu_torch.models.init",
     "jabd_tpu_torch.models.layers",
     "jabd_tpu_torch.models.mobilenet",
     "jabd_tpu_torch.models.retinaface",
+    "jabd_tpu_torch.ops",
     "jabd_tpu_torch.ops.anchors",
     "jabd_tpu_torch.ops.boxes",
     "jabd_tpu_torch.ops.image",
+    "jabd_tpu_torch.ops.matching",
+    "jabd_tpu_torch.ops.matching_cuda",
     "jabd_tpu_torch.ops.nms",
     "jabd_tpu_torch.ops.nms_cuda",
     "jabd_tpu_torch.ops.resize",
     "jabd_tpu_torch.predict",
     "jabd_tpu_torch.serve",
+    "jabd_tpu_torch.train",
+    "jabd_tpu_torch.utils",
+    "jabd_tpu_torch.utils.checkpoint",
     "jabd_tpu_torch.utils.convert",
+    "jabd_tpu_torch.utils.logging",
 ]
+
+
+def test_port_module_list_is_complete():
+    import pathlib
+
+    pkg = pathlib.Path(_repo_root()) / "jabd_tpu_torch"
+    found = {
+        ".".join(("jabd_tpu_torch",) + p.relative_to(pkg).with_suffix("").parts).removesuffix(".__init__")
+        for p in pkg.rglob("*.py")
+    }
+    assert found == set(PORT_MODULES)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
