@@ -7,11 +7,12 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
 
 0. Card: prints `nvidia-smi --query-gpu=name,power.limit` and builds the
    CUDA kernels from csrc/ (one nvcc per source, all at once).
-1. NMS kernel (K1) against its plain version: ops/nms.py on the same
+1. NMS kernels (K1) against their plain version: ops/nms.py on the same
    inputs on the card, B = 8, K = 5000 and 4999, IoU and DIoU, thresholds
    0.3 and 0.45, n_valid 0 / 1 / 37 / K, duplicate boxes, zero-area boxes
-   and grid-aligned boxes (exactly tied metrics). Keep masks must be
-   identical.
+   and grid-aligned boxes (exactly tied metrics); then valid rows that are
+   not a prefix, DIoU at threshold -0.1, K = 64 and 65, and images at the
+   wrapper's largest K. Keep masks must be identical.
 2. Serving: jabd_flagship at full width, 640x640, random weights from a
    seeded torch.Generator (random BatchNorm state, NLM output projection
    non-zero), confidence 0.02. With every launch count set to 0 it runs
@@ -22,13 +23,16 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    identical detections on the same head outputs, that the float32 heads
    on the card match the port on the CPU, times the paths and breaks one
    bf16 batch down by kernel with torch.profiler.
-3. K1's time on the main path's candidates, and its bound.
+3. K1's time on the main path's candidates, and its bound; then its time
+   with the valid rows cut to a prefix of 50, 500 and 5000.
 4. Matching kernel (K2) against its plain version (ops/matching.py) at
    the training shape, B 34, G 128, P 29,126 (840x840): GT counts spread
    over 0..128 per image, then GTs that are prior boxes (exact ties),
    duplicate GTs, valid rows that are not a prefix and GT pairs that
-   share a best prior. Outputs must be bit-identical, and so must the
-   MatchResult built on them.
+   share a best prior, then GTs whose edge lies exactly on a prior tile's
+   bounding box (K2's culling boundary), GTs covering the whole image and
+   images whose only valid row is not row 0. Outputs must be
+   bit-identical, and so must the MatchResult built on them.
 5. Training (`[train]`): jabd_flagship at 840x840 from the reference's
    seeded init, seeded synthetic images and targets. Each path runs with
    every launch count set to 0 and must launch K2: (a) one float32 step
@@ -69,6 +73,9 @@ METRIC_FLOPS = {"iou": 14, "diou": 34}
 # 2 max, 2 subtractions and 2 clamps for the overlap, 1 multiply, 1 add,
 # 1 subtraction, 1 division, 1 compare.
 MATCH_FLOPS = 13
+# Float operations per (valid GT, prior tile) of its culling test: 2 min,
+# 2 max, 2 subtractions, 2 compares.
+CULL_FLOPS = 8
 
 
 def check(cond: bool, what: str) -> None:
@@ -107,6 +114,43 @@ def back_to_back_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_split(fn, iters: int = 10) -> dict:
+    """Milliseconds of device time per `fn()` by kernel name: the self time
+    of every CUDA kernel it launches, under torch.profiler, over `iters`
+    calls. Unlike cuda_ms it leaves out the host's time to enqueue them.
+    Empty when the profiler saw no kernel in two tries (not measured)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        split = {e.key: e.self_device_time_total / iters / 1000
+                 for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        if split:
+            return split
+    return {}
+
+
+def device_ms(fn, iters: int = 10):
+    """The sum of device_split(fn): device milliseconds per call, or None
+    when not measured."""
+    split = device_split(fn, iters)
+    return sum(split.values()) if split else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def print_ptxas(name: str, log: str) -> None:
+    """The registers, shared memory and spills lines of an nvcc -Xptxas -v log."""
+    for line in log.splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            print(f"[build {name}] {line.strip()}")
+
+
 # ---------------------------------------------------------------------------
 # Phase 1 inputs
 # ---------------------------------------------------------------------------
@@ -138,6 +182,42 @@ def nms_cases(k: int, seed: int):
     return torch.from_numpy(boxes), torch.from_numpy(valid)
 
 
+def nms_phase(dev, max_k: int) -> float:
+    """K1 against the plain NMS on the card (module docstring, phase 1).
+    Returns the largest |kernel - plain| over the keep masks."""
+    from jabd_tpu_torch.ops import nms as N
+    from jabd_tpu_torch.ops import nms_cuda
+
+    cases = []
+    for k in (5000, 4999):
+        boxes, valid = nms_cases(k, seed=k)
+        for kind in ("iou", "diou"):
+            for thr in (0.3, 0.45):
+                cases.append((f"K={k} {kind} thr={thr}", boxes, valid, thr, kind))
+    boxes, valid = nms_cases(5000, seed=1)
+    scattered = torch.from_numpy(np.random.default_rng(1).random(tuple(valid.shape)) < 0.6)
+    for kind in ("iou", "diou"):
+        cases.append((f"K=5000 {kind} thr=0.3 valid not a prefix", boxes, scattered, 0.3, kind))
+    cases.append(("K=5000 diou thr=-0.1", boxes, valid, -0.1, "diou"))
+    for k in (64, 65):
+        small, small_valid = nms_cases(k, seed=k)
+        for kind in ("iou", "diou"):
+            cases.append((f"K={k} {kind} thr=0.3", small, small_valid, 0.3, kind))
+    large, large_valid = nms_cases(max_k, seed=max_k)  # images 3 (random) and 6 (ties), all valid
+    cases.append((f"K={max_k} (the largest) iou thr=0.3", large[[3, 6]], large_valid[[3, 6]], 0.3, "iou"))
+    worst = 0.0
+    for name, boxes, valid, thr, kind in cases:
+        boxes, valid = boxes.to(dev).contiguous(), valid.to(dev).contiguous()
+        got = nms_cuda.nms_keep_sorted(boxes, valid, thr, kind)
+        want = N.nms_keep_sorted(boxes, valid, thr, kind)
+        torch.cuda.synchronize()
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        print(f"[phase1] {name}: valid/image {valid.sum(1).tolist()} kept/image "
+              f"{want.sum(1).tolist()} mismatches {int((got != want).sum())}")
+        check(torch.equal(got, want), f"kernel == plain at {name}")
+    return worst
+
+
 def nms_ops(valid, keep_plain, kind):
     """Float operations this data needs: one metric per (kept i, later
     valid j) among each image's valid candidates."""
@@ -147,6 +227,26 @@ def nms_ops(valid, keep_plain, kind):
         kept = torch.nonzero(keep_plain[b, : n_valid[b]]).flatten()
         pairs += int((n_valid[b] - 1 - kept).sum())
     return pairs * METRIC_FLOPS[kind]
+
+
+def match_ops(truths, valid, priors, tile: int) -> int:
+    """Float operations this data needs for K2's function: MATCH_FLOPS per
+    (valid GT, prior) pair in a tile of `tile` priors whose bounding box the
+    GT meets, CULL_FLOPS per (valid GT, tile). Every other pair's IoU is +0,
+    known without computing it."""
+    p = priors.shape[0]
+    ntiles = -(-p // tile)
+    corners = torch.cat([priors[:, :2] - priors[:, 2:] / 2, priors[:, :2] + priors[:, 2:] / 2], 1)
+    pad = torch.tensor([[np.inf, np.inf, -np.inf, -np.inf]], device=priors.device).expand(ntiles * tile - p, 4)
+    corners = torch.cat([corners, pad]).view(ntiles, tile, 4)
+    lo, hi = corners[..., :2].amin(1), corners[..., 2:].amax(1)  # [T, 2] each
+    t = truths[:, :, None, :]  # [B, G, 1, 4]
+    meets = ((torch.minimum(t[..., 2:], hi) - torch.maximum(t[..., :2], lo)) > 0).all(-1)
+    meets &= valid[:, :, None]
+    sizes = torch.full((ntiles,), tile, device=priors.device)
+    sizes[-1] = p - (ntiles - 1) * tile
+    pairs = int((meets * sizes).sum())
+    return MATCH_FLOPS * pairs + CULL_FLOPS * int(valid.sum()) * ntiles
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +331,43 @@ def tie_targets(rng, priors, b, g):
     return boxes, labels, landms, valid
 
 
+def edge_targets(rng, priors, b, g):
+    """K2's culling boundaries, one kind per image in turn: GTs whose edge
+    lies exactly on an edge of a 1024-prior tile's bounding box (touching
+    it from each side) and ones a float step inside it, over every tile in
+    turn; GTs covering the whole image among ordinary faces; a single valid
+    row that is not row 0."""
+    from jabd_tpu_torch.data.wider import batch_targets
+
+    boxes, labels, landms, valid = batch_targets(face_rows(rng, [g] * b), g)
+    # The kernel's corner arithmetic, in float32.
+    corners = np.concatenate([priors[:, :2] - priors[:, 2:] / 2, priors[:, :2] + priors[:, 2:] / 2], 1)
+    w = h = np.float32(0.05)
+    edges = []
+    for lo in range(0, len(priors), 1024):
+        x1, y1 = corners[lo : lo + 1024, :2].min(0)
+        x2, y2 = corners[lo : lo + 1024, 2:].max(0)
+        x, y = rng.uniform(0.2, 0.7, 2).astype(np.float32)
+        edges += [
+            [x, y2, x + w, y2 + h], [x, y1 - h, x + w, y1],
+            [x2, y, x2 + w, y + h], [x1 - w, y, x1, y + h],
+            [x, np.nextafter(y2, np.float32(-2)), x + w, y2 + h],
+            [np.nextafter(x2, np.float32(-2)), y, x2 + w, y + h],
+        ]
+    edges = np.asarray(edges, np.float32)
+    for i in range(b):
+        kind = i % 3
+        if kind == 0:
+            boxes[i] = np.roll(edges, -(i // 3) * g, axis=0)[np.arange(g) % len(edges)]
+            valid[i] = True
+        elif kind == 1:
+            boxes[i, ::7] = [0.0, 0.0, 1.0, 1.0]
+        else:
+            valid[i] = False
+            valid[i, 1 + i % (g - 1)] = True
+    return boxes, labels, landms, valid
+
+
 class SyntheticFaces:
     """In-memory training set for `train.fit`: `get(idx, rng)` draws a
     noise image (as the front end leaves it: mean-subtracted float32 HWC,
@@ -274,6 +411,7 @@ def matching_phase(dev, priors_np):
     cases = [
         ("spread 0..128", batch_targets(face_rows(rng, spread_counts(b, g)), g)),
         ("ties", tie_targets(rng, priors_np, b, g)),
+        ("tile edges, whole image, single row", edge_targets(rng, priors_np, b, g)),
     ]
     worst = 0.0
     for name, arrays in cases:
@@ -418,6 +556,7 @@ def train_phase(card, dev, preset):
     # K2 on the batch-34 targets: time, plain time, bound.
     boxes, valid = targets34.boxes, targets34.valid
     ms = cuda_ms(lambda: matching_cuda.match_front(boxes, anchors, valid), iters=50)
+    dev_ms = device_ms(lambda: matching_cuda.match_front(boxes, anchors, valid))
     plain_ms = cuda_ms(lambda: M.match_front_plain(boxes, anchors, valid), iters=10)
     got = matching_cuda.match_front(boxes, anchors, valid)
     want = M.match_front_plain(boxes, anchors, valid)
@@ -428,10 +567,12 @@ def train_phase(card, dev, preset):
               + bsz * p * (4 + 8) + bsz * g * 8)  # out: overlap f32, idx and best prior int64
     n_valid = int(valid.sum())
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = MATCH_FLOPS * n_valid * p / F32_FLOPS * 1e3
-    print(f"[train] K2 match_front B={bsz} G={g} P={p}, {n_valid} valid GTs: kernel {ms:.4f} ms, "
+    ops_ms = match_ops(boxes, valid, anchors, matching_cuda._library().jabd_match_tile()) / F32_FLOPS * 1e3
+    dense_ms = MATCH_FLOPS * n_valid * p / F32_FLOPS * 1e3
+    print(f"[train] K2 match_front B={bsz} G={g} P={p}, {n_valid} valid GTs: kernel {ms:.4f} ms "
+          f"(device {fmt_ms(dev_ms)}), "
           f"plain {plain_ms:.4f} ms, bytes bound {bytes_ms:.6f} ms, operations bound "
-          f"{ops_ms:.6f} ms [{card}]")
+          f"{ops_ms:.6f} ms (dense count, every pair: {dense_ms:.6f} ms) [{card}]")
     return {
         "launches": sum(launches.values()),
         "max_abs_err": err,
@@ -474,25 +615,10 @@ def main() -> int:
     logs = _build.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'cached'}")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                print(f"[build {name}] {line.strip()}")
+        print_ptxas(name, log)
 
     # -- phase 1: kernel against plain ---------------------------------------
-    worst = 0.0
-    for k in (5000, 4999):
-        boxes, valid = nms_cases(k, seed=k)
-        boxes, valid = boxes.to(dev), valid.to(dev)
-        for kind in ("iou", "diou"):
-            for thr in (0.3, 0.45):
-                got = nms_cuda.nms_keep_sorted(boxes, valid, thr, kind)
-                want = N.nms_keep_sorted(boxes, valid, thr, kind)
-                torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
-                worst = max(worst, err)
-                print(f"[phase1] K={k} {kind} thr={thr} kept/image "
-                      f"{want.sum(1).tolist()} mismatches {int((got != want).sum())}")
-                check(torch.equal(got, want), f"kernel == plain at K={k} {kind} {thr}")
+    worst = nms_phase(dev, nms_cuda._library().jabd_nms_max_k())
 
     # -- phase 2: the slice on the main path ---------------------------------
     preset = configs.get_model_config("jabd_flagship")
@@ -636,6 +762,8 @@ def main() -> int:
     kb, kv = kernel_inputs["bf16"]
     kind, thr = pcfg.nms_kind, pcfg.nms_iou
     ms = cuda_ms(lambda: nms_cuda.nms_keep_sorted(kb, kv, thr, kind), iters=30)
+    split = device_split(lambda: nms_cuda.nms_keep_sorted(kb, kv, thr, kind))
+    dev_ms = sum(split.values()) if split else None
     plain_ms = cuda_ms(lambda: N.nms_keep_sorted(kb, kv, thr, kind), iters=3, warmup=1)
     keep_plain = N.nms_keep_sorted(kb, kv, thr, kind)
     keep_kernel = nms_cuda.nms_keep_sorted(kb, kv, thr, kind)
@@ -646,9 +774,22 @@ def main() -> int:
     nbytes = b * k * (16 + 1) + b * k  # boxes + valid in, keep out
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = nms_ops(kv, keep_plain, kind) / F32_FLOPS * 1e3
-    print(f"[phase3] nms_keep_sorted B={b} K={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    print(f"[phase3] nms_keep_sorted B={b} K={k}: kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), "
+          f"plain {plain_ms:.3f} ms, "
           f"bytes bound {bytes_ms:.6f} ms, operations bound {ops_ms:.6f} ms, "
           f"kept per image {keep_plain.sum(1).tolist()} [{card}]")
+    for name, t in split.items():
+        print(f"[phase3]   device {t:.4f} ms {name[:80]}")
+
+    # Lighter loads: the same candidates with the valid rows cut to a prefix.
+    for n in (50, 500, 5000):
+        kv_n = (kv & (torch.arange(k, device=dev) < n)).contiguous()
+        keep_n = nms_cuda.nms_keep_sorted(kb, kv_n, thr, kind)
+        if n < 5000:  # 5000 is the full main path, checked above
+            check(torch.equal(keep_n, N.nms_keep_sorted(kb, kv_n, thr, kind)), f"K1 == plain at n_valid {n}")
+        fn = lambda: nms_cuda.nms_keep_sorted(kb, kv_n, thr, kind)  # noqa: E731
+        print(f"[phase3] nms_keep_sorted B={b} K={k} n_valid<={n}: kernel {cuda_ms(fn, iters=30):.4f} ms "
+              f"(device {fmt_ms(device_ms(fn))}), kept per image {keep_n.sum(1).tolist()} [{card}]")
 
     # -- phases 4 and 5: matching kernel, training path ----------------------
     anchors840 = A.generate_anchors(preset.anchors, (840, 840)).copy()

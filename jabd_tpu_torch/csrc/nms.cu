@@ -1,4 +1,5 @@
-// Exact greedy NMS keep mask over score-sorted candidates, one block per image.
+// Exact greedy NMS keep mask over score-sorted candidates: a suppression
+// bitmask built in parallel, then a block-serial scan per image.
 //
 // Replaces the Pallas TPU kernel `_nms_kernel` of jabd_tpu/ops/nms_pallas.py
 // (launched batched by `nms_keep_sorted_pallas_batched`, one grid step per
@@ -8,50 +9,93 @@
 // j > i whose metric exceeds the threshold. Metric: IoU, or DIoU =
 // IoU - (d^2/c^2)^beta1, with the guards union > 0 and c > 0.
 //
-// Bit-exactness: the metric uses the operation order of the plain version
-// (inter = max(xx2-xx1,0) * max(yy2-yy1,0); union = (area_j + area_i) - inter;
-// IEEE division). Build with -fmad=false and without --use_fast_math so no
-// multiply-add is contracted; pow(u, 1) is taken as u, as the plain version
-// does. Inputs are assumed finite (fmaxf/fminf differ from torch.maximum only
-// on NaN).
+// Two kernels, launched back to back on one stream by jabd_nms_keep_sorted:
 //
-// Layout: 1024 threads; thread t owns candidates t, t+1024, ... (at most 5,
-// K <= 5120) and keeps their coordinates, areas and keep bits in registers.
-// The four coordinate columns also sit in dynamic shared memory (16 bytes per
-// candidate, 80 KB at K = 5120, above the 48 KB default so the launcher opts
-// in) because every step broadcasts box i to the whole block; reading it from
-// shared memory costs one barrier per step, where passing it from its owning
-// thread through a slot would cost two. The keep mask is a byte array in
-// shared memory: only the owner of j writes keep[j], and only in steps i < j,
-// so one barrier at the end of a step that wrote anything orders it before
-// the read of keep[i+1] (a step whose box is already suppressed writes
-// nothing and skips the barrier).
+// 1. nms_mask_kernel: word (i, cb) has bit c set when j = 64 cb + c > i and
+//    metric(i, j) > thr. Tiles of 64 x 64 pairs, upper triangle only
+//    (column block cb >= row block rb), stored row-block-major: image b's
+//    word (64 rb + t, cb) lies at mask[((b * nb + rb) * nb + cb) * 64 + t],
+//    nb = ceil(K / 64). So a tile is 512 contiguous bytes, and a row block's
+//    words rb .. nb-1 are one contiguous span for the scan. The grid is as
+//    many 64-thread blocks as the card holds at once, split over the images;
+//    each block counts its image's n_valid once and walks the tiles of row
+//    blocks below ceil(n_valid / 64), so the cost follows n_valid^2, not
+//    K^2. In a tile the block stages the 64 column boxes in shared memory and
+//    thread t builds row 64 rb + t's word. Rows i >= n_valid are never
+//    computed (the plain version never lets them suppress) and invalid rows
+//    write 0; a column block with no valid box writes zeros without
+//    evaluating a metric. Columns are not cut at n_valid: valid need not be a
+//    prefix, and a valid j >= n_valid can still be suppressed.
+// 2. nms_scan_kernel, one block of 256 threads per image. `removed` is a
+//    bitset over K in shared memory, starting as ~valid with the bits past
+//    K set. For each row block r < ceil(n_valid / 64): its words r .. nb-1
+//    arrive in shared memory by one TMA bulk copy, double-buffered on two
+//    mbarriers so that block r + 1 lands while block r is resolved; one
+//    warp resolves the 64 boxes with the diagonal words (box i < n_valid
+//    survives if its bit is clear and no earlier survivor of the block
+//    suppresses it), as the fixed point of "survivors = candidates minus
+//    what the survivors suppress", one lane per two rows; one warp per
+//    later word ORs the surviving rows' words into `removed`; two
+//    barriers. keep = ~removed, written as bytes.
 //
-// What bounds it on an H100: neither bytes nor arithmetic. It reads B*K*17
-// bytes and writes B*K, and does O(K) metric evaluations per kept box, but
-// the steps are serial: n_valid steps, each a shared-memory broadcast plus a
-// block-wide barrier, so the time is about (kept boxes) x (barrier latency),
-// on B of the 132 SMs. Making it fast (bitmask matrix over warps, several
-// blocks per image) is later work.
+// Bit-exactness: the metric uses the operation order of the plain version,
+// with the same operand roles (j is the `boxes` side, i the `bi` side:
+// inter = max(xx2-xx1,0) * max(yy2-yy1,0); union = (area_j + area_i) - inter;
+// DIoU's dx = cx_i - cx_j; IEEE division). Build with -fmad=false and
+// without --use_fast_math so no multiply-add is contracted; pow(u, 1) is
+// taken as u, as the plain version does. When thr >= 0 a pair with
+// inter == 0 is skipped without the division: its metric is exactly +0
+// (IoU) or <= 0 (DIoU), never > thr. Inputs are assumed finite
+// (fmaxf/fminf differ from torch.maximum only on NaN). The scan applies the
+// same greedy rule in the same order, so the keep mask is the plain
+// version's bit for bit.
+//
+// Scratch: the mask holds B * nb * nb * 64 words of 8 bytes (25.6 MB at B 8,
+// K 5000), allocated by the wrapper. Words the scan never uses (rows
+// >= n_valid, the lower triangle) are left unwritten; the scan masks them.
+//
+// What bounds it on an H100 (B 8, K 5000 on the serving path's candidates,
+// chip_smoke.py's [phase3] split): the mask kernel is instruction issue over
+// ~100 M metric pairs, most warps taking the division path because some
+// lane's pair intersects. The scan is latency, on 8 of the 132 SMs: per row
+// block one bulk copy of up to 40 KB, a few rounds of two warp reductions,
+// two barriers. A chain of boxes each suppressing only the next can take 64
+// rounds in a block, slower than a 64-step serial pass. Tried and not
+// kept: 16-byte cp.async loads in place of the bulk copy (slower); a serial
+// 64-step chain in one thread (slower once the loads were bulk copies);
+// overlapping the OR with the chain by warp specialisation (no real gain).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kPerThread = 5;
-constexpr int kMaxK = kThreads * kPerThread;
+typedef unsigned long long u64;
+
+constexpr int kWord = 64;  // boxes per mask word = rows per row block
+constexpr int kMaskThreads = kWord;
+constexpr int kScanThreads = 256;
+constexpr int kScanWarps = kScanThreads / 32;
+// The scan double-buffers a row block's words in shared memory:
+// 2 x 64 x nb x 8 bytes = 192 KB at nb = 192.
+constexpr int kMaxWords = 192;
+constexpr int kMaxK = kMaxWords * kWord;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;  // devices with cached launch settings
 
 template <bool kDiou>
-__device__ __forceinline__ float suppression_metric(
+__device__ __forceinline__ bool suppresses(
     float x1, float y1, float x2, float y2, float area_j,
-    float xi1, float yi1, float xi2, float yi2, float area_i, float beta1) {
+    float xi1, float yi1, float xi2, float yi2, float area_i,
+    float thr, float beta1, bool skip_disjoint) {
   const float xx1 = fmaxf(x1, xi1);
   const float yy1 = fmaxf(y1, yi1);
   const float xx2 = fminf(x2, xi2);
   const float yy2 = fminf(y2, yi2);
   const float inter = fmaxf(xx2 - xx1, 0.0f) * fmaxf(yy2 - yy1, 0.0f);
+  if (skip_disjoint && inter == 0.0f) return false;
   const float uni = (area_j + area_i) - inter;
   float metric = inter / (uni > 0.0f ? uni : 1.0f);
   if (kDiou) {
@@ -64,74 +108,229 @@ __device__ __forceinline__ float suppression_metric(
     const float u = d / (c > 0.0f ? c : 1.0f);
     metric = metric - (beta1 == 1.0f ? u : powf(u, beta1));
   }
-  return metric;
+  return metric > thr;
 }
 
-template <bool kDiou>
-__global__ void __launch_bounds__(kThreads, 1)
-nms_keep_sorted_kernel(const float4* __restrict__ boxes,  // [B, K] of (x1, y1, x2, y2)
-                       const uint8_t* __restrict__ valid,  // [B, K] 0/1
-                       uint8_t* __restrict__ keep,         // [B, K] 0/1
-                       int k, float thr, float beta1) {
-  extern __shared__ float smem[];
-  float* sx1 = smem;
-  float* sy1 = sx1 + k;
-  float* sx2 = sy1 + k;
-  float* sy2 = sx2 + k;
-  uint8_t* skeep = reinterpret_cast<uint8_t*>(sy2 + k);
-  __shared__ int s_nvalid;
-
+// sum(v[0:k]) over 0/1 bytes, by the whole block (blockDim.x a multiple of
+// 32, at least 16); 16-byte loads in the aligned middle, bytes at the ends.
+__device__ int block_count_valid(const uint8_t* __restrict__ v, int k, int* s_part) {
   const int tid = threadIdx.x;
-  const size_t base = static_cast<size_t>(blockIdx.x) * k;
-  if (tid == 0) s_nvalid = 0;
+  const int head = min(k, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(v) & 15)) & 15));
+  const int nvec = (k - head) / 16;
+  const int tail = head + 16 * nvec;
+  const uint4* vec = reinterpret_cast<const uint4*>(v + head);
+  int n = 0;
+  for (int q = tid; q < nvec; q += blockDim.x) {
+    const uint4 x = vec[q];  // 16 bytes of 0/1: one set bit per valid box
+    n += __popc(x.x) + __popc(x.y) + __popc(x.z) + __popc(x.w);
+  }
+  if (tid < head) n += v[tid];
+  if (tail + tid < k) n += v[tail + tid];
+  n = __reduce_add_sync(kFull, n);
+  if ((tid & 31) == 0) s_part[tid >> 5] = n;
   __syncthreads();
+  int total = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) total += s_part[w];
+  return total;
+}
 
-  float x1[kPerThread], y1[kPerThread], x2[kPerThread], y2[kPerThread];
-  float area[kPerThread];
-  bool kp[kPerThread];
+// Block x of image b walks the tiles of the upper triangle (row block rb <
+// ceil(n_valid / 64), column block cb >= rb, row-major) from tile x in steps
+// of the per-image grid.
+template <bool kDiou>
+__global__ void __launch_bounds__(kMaskThreads)
+nms_mask_kernel(const float4* __restrict__ boxes,  // [B, K] of (x1, y1, x2, y2)
+                const uint8_t* __restrict__ valid,  // [B, K] 0/1
+                u64* __restrict__ mask,              // [B, nb, nb, 64]
+                int k, int nb, int per_image, float thr, float beta1) {
+  __shared__ float4 s_box[kWord];
+  __shared__ float s_area[kWord];
+  __shared__ int s_part[kMaskThreads / 32];
+
+  const int b = blockIdx.x / per_image;
+  const int t = threadIdx.x;
+  const uint8_t* v = valid + static_cast<size_t>(b) * k;
+  const float4* bb = boxes + static_cast<size_t>(b) * k;
+  u64* m = mask + static_cast<size_t>(b) * nb * nb * kWord;
+  const int n_valid = block_count_valid(v, k, s_part);
+  const int steps = (n_valid + kWord - 1) / kWord;
+  const int tiles = steps * nb - steps * (steps - 1) / 2;
+  const bool skip_disjoint = thr >= 0.0f;
+
+  int rb = 0, row_start = 0;  // the first tile of row block rb
+  for (int q = blockIdx.x % per_image; q < tiles; q += per_image) {
+    while (q >= row_start + nb - rb) {
+      row_start += nb - rb;
+      ++rb;
+    }
+    const int cb = rb + q - row_start;
+    const int i = rb * kWord + t;
+    const int j = cb * kWord + t;
+    u64* out = m + (static_cast<size_t>(rb) * nb + cb) * kWord + t;
+    // The barrier also keeps the previous tile's readers of s_box.
+    if (!__syncthreads_or(j < k && v[j])) {  // no valid column: nothing to suppress
+      if (i < n_valid) *out = 0ull;
+      continue;
+    }
+    // Columns past K stage as zero boxes; their bits are cut below.
+    const float4 col = j < k ? bb[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    s_box[t] = col;
+    s_area[t] = (col.z - col.x) * (col.w - col.y);
+    __syncthreads();
+    if (i >= n_valid) continue;
+    u64 word = 0ull;
+    if (v[i]) {  // an invalid row is removed from the start and suppresses nothing
+      const float4 bi = bb[i];
+      const float area_i = (bi.z - bi.x) * (bi.w - bi.y);
+      // Every column, c and c + 32 side by side into 32-bit halves.
+      unsigned lo = 0u, hi = 0u, bit = 1u;
+#pragma unroll 8
+      for (int c = 0; c < kWord / 2; ++c, bit <<= 1) {
+        const float4 a = s_box[c];
+        if (suppresses<kDiou>(a.x, a.y, a.z, a.w, s_area[c], bi.x, bi.y, bi.z, bi.w,
+                              area_i, thr, beta1, skip_disjoint)) {
+          lo |= bit;
+        }
+        const float4 z = s_box[c + kWord / 2];
+        if (suppresses<kDiou>(z.x, z.y, z.z, z.w, s_area[c + kWord / 2], bi.x, bi.y, bi.z,
+                              bi.w, area_i, thr, beta1, skip_disjoint)) {
+          hi |= bit;
+        }
+      }
+      word = (static_cast<u64>(hi) << 32) | lo;
+      if (cb == rb) word &= ~0ull << t << 1;  // only j > i
+      if (k - cb * kWord < kWord) word &= (1ull << (k - cb * kWord)) - 1ull;  // only j < K
+    }
+    *out = word;
+  }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One TMA bulk copy global -> shared of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned), completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, u64* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// Waits for phase `parity` of `bar`; traps (a launch failure the wrapper
+// reports) rather than spin for ever if the copy never lands.
+__device__ __forceinline__ void wait_parity(u64* bar, unsigned parity) {
+  for (int spins = 0;; ++spins) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (spins == (1 << 24)) __trap();
+  }
+}
+
+__global__ void __launch_bounds__(kScanThreads, 1)
+nms_scan_kernel(const u64* __restrict__ mask,       // [B, nb, nb, 64]
+                const uint8_t* __restrict__ valid,  // [B, K] 0/1
+                uint8_t* __restrict__ keep,         // [B, K] 0/1
+                int k, int nb) {
+  extern __shared__ __align__(16) u64 s_rows[];  // [2][nb][64]: row blocks by parity
+  __shared__ u64 s_removed[kMaxWords];
+  __shared__ __align__(8) u64 s_bar[2];  // "row block landed", by parity
+  __shared__ u64 s_kept;
+  __shared__ int s_part[kScanWarps];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const uint8_t* v = valid + static_cast<size_t>(b) * k;
+  const size_t plane = static_cast<size_t>(nb) * kWord;  // words per row block
+  const u64* m = mask + static_cast<size_t>(b) * nb * plane;
+
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&s_bar[0])) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&s_bar[1])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // removed = ~valid, bits past K set; one warp per word.
   int count = 0;
-#pragma unroll
-  for (int t = 0; t < kPerThread; ++t) {
-    const int j = tid + t * kThreads;
-    kp[t] = false;
-    x1[t] = y1[t] = x2[t] = y2[t] = area[t] = 0.0f;
-    if (j < k) {
-      const float4 b = boxes[base + j];
-      x1[t] = b.x; y1[t] = b.y; x2[t] = b.z; y2[t] = b.w;
-      area[t] = (b.z - b.x) * (b.w - b.y);
-      kp[t] = valid[base + j] != 0;
-      sx1[j] = b.x; sy1[j] = b.y; sx2[j] = b.z; sy2[j] = b.w;
-      skeep[j] = kp[t];
-      count += kp[t];
+  for (int w = warp; w < nb; w += kScanWarps) {
+    const int j = w * kWord + lane;
+    const unsigned lo = __ballot_sync(kFull, j < k && v[j]);
+    const unsigned hi = __ballot_sync(kFull, j + 32 < k && v[j + 32]);
+    if (lane == 0) {
+      s_removed[w] = ~((static_cast<u64>(hi) << 32) | lo);
+      count += __popc(lo) + __popc(hi);
     }
   }
-  if (count) atomicAdd(&s_nvalid, count);
+  if (lane == 0) s_part[warp] = count;
   __syncthreads();
-  const int n_valid = s_nvalid;
+  int n_valid = 0;
+  for (int w = 0; w < kScanWarps; ++w) n_valid += s_part[w];
+  const int steps = (n_valid + kWord - 1) / kWord;
 
-  for (int i = 0; i < n_valid; ++i) {
-    if (!skeep[i]) continue;  // the same byte for every thread: uniform
-    const float xi1 = sx1[i], yi1 = sy1[i], xi2 = sx2[i], yi2 = sy2[i];
-    const float area_i = (xi2 - xi1) * (yi2 - yi1);
-#pragma unroll
-    for (int t = 0; t < kPerThread; ++t) {
-      const int j = tid + t * kThreads;
-      if (kp[t] && j > i) {
-        const float m = suppression_metric<kDiou>(
-            x1[t], y1[t], x2[t], y2[t], area[t], xi1, yi1, xi2, yi2, area_i, beta1);
-        if (m > thr) {
-          kp[t] = false;
-          skeep[j] = 0;
-        }
+  // Row block r's words r .. nb-1 (64 rows each) are contiguous in the
+  // mask: one bulk copy, by thread 0.
+  auto load = [&](int r) {
+    bulk_load(s_rows + (r & 1) * plane + r * kWord, m + r * plane + r * kWord,
+              static_cast<unsigned>((nb - r) * kWord * sizeof(u64)), &s_bar[r & 1]);
+  };
+  if (tid == 0 && steps > 0) load(0);
+  if (tid == 0 && steps > 1) load(1);
+
+  for (int r = 0; r < steps; ++r) {
+    wait_parity(&s_bar[r & 1], (r >> 1) & 1);
+    const u64* rows = s_rows + (r & 1) * plane;
+    if (warp == 0) {
+      // Resolve the block: lane l holds rows l and l + 32's diagonal words.
+      // The survivors are the unique K with K = A \ OR_{s in K} d[s] (A: the
+      // rows < n_valid not yet removed; d[s] has bits only above s, so K is
+      // fixed position by position). Iterating from K = A fixes at least
+      // one more position per round and stops at K itself: exact, in at
+      // most 65 rounds, a few on the data measured.
+      const int live = min(kWord, n_valid - r * kWord);  // rows i < n_valid
+      const u64 live_mask = live == kWord ? ~0ull : (1ull << live) - 1ull;
+      const u64 removed = s_removed[r];
+      const u64 alive = ~removed & live_mask;
+      const u64 d0 = rows[r * kWord + lane], d1 = rows[r * kWord + lane + 32];
+      u64 kept = alive, suppressed;
+      while (true) {
+        const u64 c = ((kept >> lane) & 1ull ? d0 : 0ull) | ((kept >> (lane + 32)) & 1ull ? d1 : 0ull);
+        const unsigned lo = __reduce_or_sync(kFull, static_cast<unsigned>(c));
+        const unsigned hi = __reduce_or_sync(kFull, static_cast<unsigned>(c >> 32));
+        suppressed = (static_cast<u64>(hi) << 32) | lo;
+        const u64 next = alive & ~suppressed;
+        if (next == kept) break;  // the same in every lane
+        kept = next;
+      }
+      if (lane == 0) {
+        s_removed[r] = removed | suppressed;
+        s_kept = kept;
       }
     }
     __syncthreads();
+    const u64 kept = s_kept;
+    if (kept) {
+      for (int w = r + 1 + warp; w < nb; w += kScanWarps) {
+        const u64 a = (kept >> lane) & 1ull ? rows[w * kWord + lane] : 0ull;
+        const u64 c = (kept >> (lane + 32)) & 1ull ? rows[w * kWord + lane + 32] : 0ull;
+        const unsigned lo = __reduce_or_sync(kFull, static_cast<unsigned>(a | c));
+        const unsigned hi = __reduce_or_sync(kFull, static_cast<unsigned>((a | c) >> 32));
+        if (lane == 0) s_removed[w] |= (static_cast<u64>(hi) << 32) | lo;
+      }
+    }
+    __syncthreads();  // this buffer is free again
+    if (tid == 0 && r + 2 < steps) load(r + 2);
   }
 
-#pragma unroll
-  for (int t = 0; t < kPerThread; ++t) {
-    const int j = tid + t * kThreads;
-    if (j < k) keep[base + j] = kp[t];
+  uint8_t* out = keep + static_cast<size_t>(b) * k;
+  for (int i = tid; i < k; i += kScanThreads) {
+    out[i] = !((s_removed[i / kWord] >> (i % kWord)) & 1ull);
   }
 }
 
@@ -139,20 +338,54 @@ nms_keep_sorted_kernel(const float4* __restrict__ boxes,  // [B, K] of (x1, y1, 
 
 extern "C" int jabd_nms_max_k() { return kMaxK; }
 
-// kind: 0 = IoU, 1 = DIoU. Returns a cudaError_t (0 on success).
-extern "C" int jabd_nms_keep_sorted(const void* boxes, const void* valid, void* keep,
+// kind: 0 = IoU, 1 = DIoU. `mask` is scratch of batch * nb * 64 nb uint64
+// words, nb = ceil(k / 64), 16-byte aligned. Returns a cudaError_t (0 on
+// success).
+extern "C" int jabd_nms_keep_sorted(const void* boxes, const void* valid, void* mask, void* keep,
                                     int batch, int k, float thr, int kind, float beta1,
                                     void* stream) {
-  if (batch <= 0 || k <= 0 || k > kMaxK || (kind != 0 && kind != 1)) {
+  if (batch <= 0 || k <= 0 || k > kMaxK || (kind != 0 && kind != 1) ||
+      reinterpret_cast<uintptr_t>(mask) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(k) * (4 * sizeof(float) + 1);
-  auto kernel = kind == 1 ? nms_keep_sorted_kernel<true> : nms_keep_sorted_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const int nb = (k + kWord - 1) / kWord;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto mask_kernel = kind == 1 ? nms_mask_kernel<true> : nms_mask_kernel<false>;
+  // Kernel attributes and occupancy hold per device, so both caches are
+  // kept per device (the current one); past kMaxDevices nothing is cached.
+  static int cached_per_sm[kMaxDevices][2];  // resident mask blocks per SM, by kind; 0: not yet
+  static bool scan_ready[kMaxDevices];       // the scan's opt-in to kMaxSmem is made
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  const bool cached = device >= 0 && device < kMaxDevices;
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (cached) per_sm = cached_per_sm[device][kind];
+  if (err == cudaSuccess && per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mask_kernel, kMaskThreads, 0);
+    if (err == cudaSuccess && cached) cached_per_sm[device][kind] = per_sm;
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  // As many blocks as the card holds at once, split evenly over the images
+  // (and no more than an image has tiles).
+  const int per_image = std::max(1, std::min(nb * (nb + 1) / 2, sms * per_sm / batch));
+  if (static_cast<long long>(batch) * per_image > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  mask_kernel<<<batch * per_image, kMaskThreads, 0, s>>>(
       static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<uint8_t*>(keep), k, thr, beta1);
+      static_cast<u64*>(mask), k, nb, per_image, thr, beta1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr size_t kMaxSmem = 2 * kMaxWords * kWord * sizeof(u64);
+  if (!cached || !scan_ready[device]) {
+    err = cudaFuncSetAttribute(nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kMaxSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (cached) scan_ready[device] = true;
+  }
+  const size_t smem = 2 * static_cast<size_t>(nb) * kWord * sizeof(u64);
+  nms_scan_kernel<<<batch, kScanThreads, smem, s>>>(
+      static_cast<const u64*>(mask), static_cast<const uint8_t*>(valid),
+      static_cast<uint8_t*>(keep), k, nb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,13 @@ duplicate GTs (exact ties between GT rows), two GTs whose best prior is
 the same one (the forced match: the last GT wins), padded rows after the
 valid prefix, valid rows that are not a prefix, and no valid row at all.
 At 384x384 there are 6048 priors, two tiles of the Pallas kernel.
+
+A torch emulation of the CUDA kernel's algorithm (tiles of 1024 priors,
+GTs culled by the tile's bounding box, per-prior bests started at
+(+0, first valid row), per-GT tile maxima combined first tile first) must
+give the plain front half bit for bit, on these cases, on a spread of GT
+counts, and on GTs that touch a tile's bounding box exactly, cover the
+whole image, or are an image's only valid row.
 """
 
 import jax
@@ -174,6 +181,154 @@ def test_forced_match_last_gt_wins():
     want = JM.match_batch(THRESHOLD, truths, priors, VAR, labels, landms, valid)
     np.testing.assert_array_equal(got.conf_t.numpy(), np.asarray(want.conf_t))
     assert got.conf_t[0, 0] == -1.0
+
+
+TILE = 1024
+
+
+def _prior_corners(priors):
+    """The kernel's (and the plain version's) corner arithmetic."""
+    return (priors[:, 0] - priors[:, 2] / 2, priors[:, 1] - priors[:, 3] / 2,
+            priors[:, 0] + priors[:, 2] / 2, priors[:, 1] + priors[:, 3] / 2)
+
+
+def _tile_boxes(priors):
+    """Per 1024-prior tile, the bounding box (X1, Y1, X2, Y2) of its priors."""
+    px1, py1, px2, py2 = _prior_corners(torch.from_numpy(priors))
+    return [(float(px1[lo:lo + TILE].min()), float(py1[lo:lo + TILE].min()),
+             float(px2[lo:lo + TILE].max()), float(py2[lo:lo + TILE].max()))
+            for lo in range(0, len(priors), TILE)]
+
+
+def _k2_emulation(truths, priors, valid):
+    """`csrc/matching.cu`'s algorithm on the CPU."""
+    truths, priors, valid = (torch.from_numpy(a) for a in (truths, priors, valid))
+    bsz, g = valid.shape
+    p = priors.shape[0]
+    px1, py1, px2, py2 = _prior_corners(priors)
+    parea = (px2 - px1) * (py2 - py1)
+    tx1, ty1, tx2, ty2 = truths.unbind(-1)
+    area_t = (tx2 - tx1) * (ty2 - ty1)
+    bt_ov = torch.empty((bsz, p), dtype=torch.float32)
+    bt_ix = torch.empty((bsz, p), dtype=torch.int64)
+    ntiles = -(-p // TILE)
+    tile_max = torch.full((bsz, ntiles, g), -1.0)
+    tile_arg = torch.zeros((bsz, ntiles, g), dtype=torch.int64)
+    for t in range(ntiles):
+        sl = slice(t * TILE, min(p, (t + 1) * TILE))
+        X1, Y1 = px1[sl].min(), py1[sl].min()
+        X2, Y2 = px2[sl].max(), py2[sl].max()
+        hit = (valid & (torch.minimum(tx2, X2) - torch.maximum(tx1, X1) > 0)
+               & (torch.minimum(ty2, Y2) - torch.maximum(ty1, Y1) > 0))
+        for b in range(bsz):
+            rows = torch.nonzero(valid[b]).flatten().tolist()
+            start = (0.0, rows[0]) if rows else (-1.0, 0)
+            best = torch.full((sl.stop - sl.start,), start[0])
+            idx = torch.full((sl.stop - sl.start,), start[1], dtype=torch.int64)
+            for j in rows:
+                if not hit[b, j]:  # +0 on every prior of the tile
+                    tile_max[b, t, j], tile_arg[b, t, j] = 0.0, sl.start
+                    continue
+                iw = torch.clamp(torch.minimum(tx2[b, j], px2[sl]) - torch.maximum(tx1[b, j], px1[sl]), min=0.0)
+                ih = torch.clamp(torch.minimum(ty2[b, j], py2[sl]) - torch.maximum(ty1[b, j], py1[sl]), min=0.0)
+                inter = iw * ih
+                iou = torch.where(inter == 0, 0.0, inter / ((area_t[b, j] + parea[sl]) - inter))
+                better = iou > best
+                best = torch.where(better, iou, best)
+                idx = torch.where(better, j, idx)
+                tile_max[b, t, j] = iou.max()
+                tile_arg[b, t, j] = sl.start + torch.argmax(iou)  # the first maximum
+            bt_ov[b, sl], bt_ix[b, sl] = best, idx
+    first_tile = torch.argmax(tile_max, dim=1, keepdim=True)  # first tile on ties
+    bp_ix = torch.where(valid, torch.gather(tile_arg, 1, first_tile)[:, 0], 0)
+    return bt_ov, bt_ix, bp_ix
+
+
+def _spread_case(priors, seed=1):
+    """GT counts spread over 0..G per image (face-sized boxes)."""
+    rng = np.random.default_rng(seed)
+    b = 6
+    truths = np.zeros((b, G, 4), np.float32)
+    valid = np.zeros((b, G), bool)
+    for i, n in enumerate(np.linspace(G, 0, b).round().astype(int)):
+        cxy = rng.uniform(0.05, 0.95, (n, 2))
+        wh = rng.uniform(0.01, 0.2, (n, 2))
+        truths[i, :n] = np.clip(np.concatenate([cxy - wh / 2, cxy + wh / 2], 1), 0.0, 1.0)
+        valid[i, :n] = True
+    return truths, valid
+
+
+def _edge_case(priors, seed=2):
+    """Image 0: per tile, GTs whose edge lies exactly on an edge of the
+    tile's box (iw or ih is 0 on that boundary: culled) and one a float
+    step inside it (not culled); image 1: GTs covering the whole image;
+    image 2: a single valid row, not row 0."""
+    rng = np.random.default_rng(seed)
+    g = 48
+    truths = np.zeros((3, g, 4), np.float32)
+    valid = np.zeros((3, g), bool)
+    rows = []
+    w = h = np.float32(0.1)
+    for X1, Y1, X2, Y2 in np.asarray(_tile_boxes(priors), np.float32):
+        x, y = rng.uniform(0.2, 0.6, 2).astype(np.float32)
+        below, left = np.nextafter(Y2, np.float32(-2)), np.nextafter(X2, np.float32(-2))
+        rows += [
+            [x, Y2, x + w, Y2 + h],  # below the tile, touching
+            [x, Y1 - h, x + w, Y1],  # above it
+            [X2, y, X2 + w, y + h],  # right of it
+            [X1 - w, y, X1, y + h],  # left of it
+            [x, below, x + w, Y2 + h],  # overlapping by one float step
+            [left, y, X2 + w, y + h],
+        ]
+    rows = np.asarray(rows, np.float32)[:g]
+    truths[0, : len(rows)] = rows
+    valid[0, : len(rows)] = True
+    truths[1, :3] = [[0.0, 0.0, 1.0, 1.0], [0.3, 0.3, 0.4, 0.4], [0.0, 0.0, 1.0, 1.0]]
+    valid[1, :3] = True
+    truths[2] = np.clip(_random_boxes(rng, g), 0.0, 1.0)
+    valid[2, 9] = True
+    return truths, valid
+
+
+def _case(problem, case):
+    """(priors, truths, valid) of a named case."""
+    priors = problem[0]
+    if case == "ties":
+        return priors, problem[1], problem[4]
+    if case == "spread":
+        return (priors,) + _spread_case(priors)
+    return (priors,) + _edge_case(priors)
+
+
+@pytest.mark.parametrize("case", ["ties", "spread", "tile_edges"])
+def test_kernel_algorithm_equals_plain(problem, case):
+    priors, truths, valid = _case(problem, case)
+    got = _k2_emulation(truths, priors, valid)
+    want = TM.match_front_plain(*(torch.from_numpy(a) for a in (truths, priors, valid)))
+    for name, g, w in zip(("best_truth_overlap", "best_truth_idx", "best_prior_idx"), got, want):
+        assert g.dtype == w.dtype, name
+        assert torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                           w.view(torch.int32) if w.is_floating_point() else w), name
+
+
+@pytest.mark.parametrize("case", ["ties", "spread", "tile_edges"])
+def test_chip_smoke_operations_count_the_pairs_k2_visits(problem, case):
+    """K2's operations bound in chip_smoke.py counts MATCH_FLOPS per (valid
+    GT, prior) pair in a tile whose box the GT meets, as the kernel culls,
+    and CULL_FLOPS per (valid GT, tile)."""
+    import chip_smoke
+
+    priors, truths, valid = _case(problem, case)
+    t, v = torch.from_numpy(truths), torch.from_numpy(valid)
+    pairs = 0
+    boxes = _tile_boxes(priors)
+    for i, (X1, Y1, X2, Y2) in enumerate(boxes):
+        hit = (v & (torch.clamp(t[..., 2], max=X2) - torch.clamp(t[..., 0], min=X1) > 0)
+               & (torch.clamp(t[..., 3], max=Y2) - torch.clamp(t[..., 1], min=Y1) > 0))
+        pairs += int(hit.sum()) * (min(len(priors), (i + 1) * TILE) - i * TILE)
+    assert 0 < pairs < int(v.sum()) * len(priors)  # culling leaves some pairs, not all
+    want = chip_smoke.MATCH_FLOPS * pairs + chip_smoke.CULL_FLOPS * int(v.sum()) * len(boxes)
+    assert chip_smoke.match_ops(t, v, torch.from_numpy(priors), TILE) == want
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():

@@ -96,6 +96,19 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
     subprocess.run([sys.executable, "-c", code], check=True, cwd=_repo_root())
 
 
+def test_compare_kernels_imports_neither_jax_nor_the_jax_package():
+    code = textwrap.dedent(
+        """
+        import sys
+        import compare_kernels
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "jabd_tpu"))
+        assert not bad, bad
+        """
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=_repo_root())
+
+
 def _repo_root():
     import pathlib
 
