@@ -43,7 +43,21 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    checkpoint for a third: checkpoints, metrics.csv rows. Then train-step
    times and peak memory, a profiler breakdown of bf16 steps, and K2's
    time and bound on the batch-34 targets.
-6. One JSON line of every kernel of the port: launches on the main paths,
+6. Training input (`[augment]`): an in-memory WiderFaceDataset of 68
+   seeded uint8 images at WIDER FACE's geometry (`wider_in_memory`: 1024
+   px wide, faces with landmarks and +-1 flags). Host img/s per core of
+   `augment_sample` and `plan_sample`; at bucket 1024x1024 on the card
+   `device_augment` bf16 against f32 and against the host frames (the CPU
+   tests' bounds), and its ms per batch of 34. Each path runs with every
+   launch count set to 0 and must launch K2: `fit` for two epochs with
+   `device_augment=True` and for one on the host loader (checkpoints,
+   finite losses), then bf16 bs-34 steps with `remat=True`, with
+   `microbatches=2` and with `device_augment=True`, each against the plain
+   step (ms/step, peak memory); steps, and `fit` epochs of 8 steps, fed
+   through `prefetch_to_device` against copies on the compute stream, in
+   turns; a profile of the device-augment step, and K2 against its plain
+   version on the augmented batch's targets (bit-identical; time, bound).
+7. One JSON line of every kernel of the port: launches on the main paths,
    error against the plain version, times and bound.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
@@ -52,6 +66,7 @@ every phase passed. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -583,6 +598,408 @@ def train_phase(card, dev, preset):
     }
 
 
+def smooth_image(rng, h: int, w: int) -> np.ndarray:
+    """A uint8 [h, w, 3] image of smooth seeded content: noise on a grid
+    16 times coarser, bilinearly upsampled, plus fine noise."""
+    import torch.nn.functional as F
+
+    coarse = torch.from_numpy(rng.uniform(0, 255, (1, 3, h // 16 + 2, w // 16 + 2)).astype(np.float32))
+    x = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)[0].permute(1, 2, 0)
+    x = x.numpy() + rng.normal(0, 4, (h, w, 3)).astype(np.float32)
+    return np.clip(x, 0, 255).astype(np.uint8)
+
+
+# WIDER FACE's geometry (Yang et al., "WIDER FACE: A Face Detection
+# Benchmark", CVPR 2016): the released images are 1024 px wide; 393,703
+# faces in 32,203 images, 12.2 per image on average; the paper's scale
+# classes are face heights of 10-50 px (small), 50-300 (medium) and over
+# 300 (large). What the paper does not give is drawn here by assumption:
+# the image heights (the aspect ratios of WIDER_ASPECTS), a geometric count
+# of faces per image, face heights log-uniform over 10-500 px (41% small,
+# 46% medium, 13% large) and face widths 0.8-1.0 of the height.
+WIDER_WIDTH = 1024
+WIDER_FACES_PER_IMAGE = 393_703 / 32_203
+WIDER_FACE_PX = (10.0, 500.0)
+WIDER_ASPECTS = ((4, 3), (3, 2), (16, 9), (3, 4))  # width : height
+
+
+def wider_rows(rng, w: int, h: int, n: int) -> np.ndarray:
+    """n WIDER-style [x1 y1 x2 y2, 5 x (lx, ly), flag] rows in pixels: face
+    heights log-uniform over WIDER_FACE_PX (at most the image's short side),
+    landmarks inside the box with flag 1, or -1 everywhere with flag -1 (a
+    face without landmarks), as parse_wider_labels gives them."""
+    lo, hi = np.log(WIDER_FACE_PX)
+    side = np.minimum(np.exp(rng.uniform(lo, hi, n)), min(w, h) - 2)
+    bw = side * rng.uniform(0.8, 1.0, n)
+    x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - side)
+    rows = np.zeros((n, 15), np.float32)
+    rows[:, :4] = np.stack([x1, y1, x1 + bw, y1 + side], 1)
+    u = rng.uniform(0.2, 0.8, (n, 5, 2))
+    rows[:, 4:14] = (rows[:, None, :2] + u * (rows[:, None, 2:4] - rows[:, None, :2])).reshape(n, 10)
+    flag = rng.random(n) < 0.7
+    rows[~flag, 4:14] = -1.0
+    rows[:, 14] = np.where(flag, 1.0, -1.0)
+    return rows
+
+
+def wider_in_memory(n: int, input_size: int, seed: int):
+    """A WiderFaceDataset over n seeded in-memory images (no files) at
+    WIDER FACE's geometry: WIDER_WIDTH wide, heights from WIDER_ASPECTS,
+    a geometric number of faces with mean WIDER_FACES_PER_IMAGE."""
+    from jabd_tpu_torch.data.wider import WiderFaceDataset
+
+    class InMemoryWider(WiderFaceDataset):
+        def __init__(self):
+            rng = np.random.default_rng(seed)
+            self.input_size, self.seed = input_size, seed
+            self.images, self.annos = [], []
+            for _ in range(n):
+                aw, ah = WIDER_ASPECTS[int(rng.integers(len(WIDER_ASPECTS)))]
+                w, h = WIDER_WIDTH, WIDER_WIDTH * ah // aw
+                self.images.append(smooth_image(rng, h, w))
+                faces = int(rng.geometric(1.0 / WIDER_FACES_PER_IMAGE))
+                self.annos.append(wider_rows(rng, w, h, faces))
+            self.imgs_path = [f"in-memory/{i}" for i in range(n)]
+
+        def load_image(self, index):
+            return self.images[index]
+
+    return InMemoryWider()
+
+
+class RepeatedDataset:
+    """`times` passes over a WiderFaceDataset as one dataset: index i reads
+    image i % n with its own augmentation draw (sample_rng of i)."""
+
+    def __init__(self, ds, times: int):
+        self.ds, self.times = ds, times
+        self.annos = ds.annos * times
+        self.input_size = ds.input_size
+
+    def __len__(self):
+        return len(self.ds) * self.times
+
+    def load_image(self, index):
+        return self.ds.load_image(index % len(self.ds))
+
+    def get(self, index, rng):
+        return self.ds.get(index % len(self.ds), rng)
+
+
+def copies_on_compute_stream(iterator, device, depth: int = 2):
+    """prefetch_to_device's earlier design, for comparison: the same pinned,
+    non-blocking copies, issued on the current (compute) stream."""
+    from jabd_tpu_torch import train as T
+
+    queue = collections.deque()
+    for batch in iterator:
+        queue.append(T._to_device(batch, torch.device(device), []))
+        if len(queue) >= depth:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()
+
+
+def fed_step_ms(prefetch, batch, run_step, dev, n: int = 6) -> float:
+    """Milliseconds per step (host clock, synchronised at both ends) of n
+    steps fed by `prefetch` from n references to one CPU batch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for moved in prefetch(iter([batch] * n), dev):
+        run_step(moved)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000 / n
+
+
+def fed_steps(name, cpu_batch, run_step, dev, resident_ms: float, card: str) -> None:
+    """Print the ms/step of run_step fed from one CPU batch through
+    copies_on_compute_stream (C) and prefetch_to_device (S), 8 steps a
+    turn, in turns C S S C C S, beside the step on a batch resident on the
+    card; check that the batch arrives intact."""
+    from jabd_tpu_torch import train as T
+
+    moved = next(T.prefetch_to_device(iter([cpu_batch]), dev))
+    check(torch.equal(moved[0].cpu(), cpu_batch[0]), f"prefetch_to_device {name}: the batch arrives")
+    del moved
+    feeds = {"compute": copies_on_compute_stream, "side": T.prefetch_to_device}
+    for feed in feeds.values():  # warm-up: pinned buffers, allocator
+        fed_step_ms(feed, cpu_batch, run_step, dev, n=2)
+    turns = {k: [] for k in feeds}
+    for k in ("compute", "side", "side", "compute", "compute", "side"):
+        turns[k].append(fed_step_ms(feeds[k], cpu_batch, run_step, dev, n=8))
+    copy_ms = cuda_ms(lambda: T._to_device(cpu_batch, torch.device(dev), []), iters=5)
+    mb = sum(t.numel() * t.element_size() for t in cpu_batch if isinstance(t, torch.Tensor)) / 1e6
+    print(f"[augment] fed steps {name} ({mb:.1f} MB a batch; pin + copy alone {copy_ms:.3f} ms events): "
+          f"ms/step over 8 steps in turns C S S C C S, copies on the compute stream (C) "
+          f"{[round(v, 3) for v in turns['compute']]} median {statistics.median(turns['compute']):.3f}, "
+          f"prefetch_to_device (S) {[round(v, 3) for v in turns['side']]} median "
+          f"{statistics.median(turns['side']):.3f}; batch resident on the card {resident_ms:.3f} [{card}]")
+
+
+def pixel_bounds(got: torch.Tensor, want: torch.Tensor):
+    """(max, mean, share of pixels with a channel beyond 6) of |got - want|
+    per image, the CPU tests' device-vs-host rule (mean <= 0.5, share <=
+    0.005): near-grey pixels flip hue under the reference's H > 1 quirk."""
+    err = (got.float() - want.float()).abs()
+    per_img_mean = err.flatten(1).mean(1)
+    share = (err.amax(-1) > 6.0).flatten(1).float().mean(1)
+    return float(err.max()), per_img_mean, share
+
+
+def augment_phase(card, dev, preset):
+    """Drive the training-input paths (module docstring, phase 6) and
+    return K2's launches and error on them."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from jabd_tpu_torch import configs
+    from jabd_tpu_torch import train as T
+    from jabd_tpu_torch.data import device_augment as DA
+    from jabd_tpu_torch.data.wider import augment_sample, batch_targets, draw_augment_params, sample_rng
+    from jabd_tpu_torch.ops import anchors as A
+    from jabd_tpu_torch.ops import matching as M
+    from jabd_tpu_torch.ops import matching_cuda
+    from jabd_tpu_torch.ops.image import preprocess_input_np
+    from jabd_tpu_torch.ops.resize import TAPS_FSCAP
+    from jabd_tpu_torch.utils.checkpoint import CheckpointManager
+
+    counter = matching_cuda.match_front
+    tcfg = configs.TrainConfig()
+    size, bsz, g, bucket = tcfg.image_size, tcfg.batch_size, tcfg.max_targets, tcfg.augment_bucket
+    anchors = torch.from_numpy(A.generate_anchors(preset.anchors, (size, size)).copy()).to(dev)
+    launches = {}
+
+    def driven(name, fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = counter.launches
+        check(counter.launches > 0, f"{name} launched K2")
+        return out
+
+    t0 = time.perf_counter()
+    ds = wider_in_memory(2 * bsz, size, seed=6)
+    heights = [im.shape[0] for im in ds.images]
+    faces = [len(a) for a in ds.annos]
+    face_h = np.concatenate([a[:, 3] - a[:, 1] for a in ds.annos])
+    classes = [int(((face_h >= lo) & (face_h < hi)).sum()) for lo, hi in ((10, 50), (50, 300), (300, 1e9))]
+    print(f"[augment] dataset: {len(ds)} images {WIDER_WIDTH} px wide, heights {min(heights)}-{max(heights)} px "
+          f"({sum(h > bucket[0] for h in heights)} taller than the bucket), faces per image "
+          f"{min(faces)}-{max(faces)} (mean {np.mean(faces):.2f}, {sum(faces)} in all; small / medium / large "
+          f"{classes}), made in {time.perf_counter() - t0:.1f} s")
+
+    # Host rates, one thread: what one loader core delivers.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        idx = list(range(bsz))
+        t0 = time.perf_counter()
+        host = [augment_sample(ds.images[i], ds.annos[i], size, sample_rng(0, i)) for i in idx]
+        host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plans = [DA.plan_sample(ds.images[i], ds.annos[i], size, sample_rng(0, i), bucket) for i in idx]
+        plan_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    print(f"[augment] host, one thread, {bsz} images at {size}x{size}: augment_sample "
+          f"{bsz / host_s:.2f} img/s per core ({1000 * host_s / bsz:.1f} ms/image); plan_sample "
+          f"(bucket {bucket[0]}x{bucket[1]}, taps) {bsz / plan_s:.2f} img/s per core "
+          f"({1000 * plan_s / bsz:.1f} ms/image); {os.cpu_count()} cores")
+    for (_, hb), (_, _, pb) in zip(host, plans):
+        check(np.array_equal(hb, pb), "plan_sample targets == augment_sample targets")
+
+    # device_augment at the bucket on the card: bf16 against f32, against the host.
+    u8 = torch.from_numpy(np.stack([p[0] for p in plans])).to(dev)
+    plan32 = DA.AugmentPlanTaps(*(t.to(dev) for t in DA.stack_plans([p[1] for p in plans])))
+    plan16 = DA.AugmentPlanTaps(*(t.to(dev) for t in DA.stack_plans([p[1] for p in plans], torch.bfloat16)))
+    f32 = DA.device_augment(u8, plan32, resample_dtype=torch.float32)
+    bf16 = DA.device_augment(u8, plan16)
+    host_frames = torch.from_numpy(np.stack([preprocess_input_np(im) for im, _ in host])).to(dev)
+    # Sources larger than the bucket, or downscaled by more than TAPS_FSCAP,
+    # are pre-shrunk on the host (PIL bicubic) before the device resample:
+    # two resamples instead of one, so their pixels differ from the host's
+    # by more than rounding; the CPU tests' bounds hold for the others.
+    shrunk = []
+    for i in idx:
+        d = draw_augment_params(sample_rng(0, i), size)
+        ih, iw = ds.images[i].shape[:2]
+        shrunk.append(ih > min(bucket[0], int(TAPS_FSCAP * max(d.nh, 1)))
+                      or iw > min(bucket[1], int(TAPS_FSCAP * max(d.nw, 1))))
+    shrunk = torch.tensor(shrunk, device=dev)
+    cases = (("bf16 vs f32", bf16, f32, torch.ones_like(shrunk), 0.5, 0.005),
+             ("device f32 vs host, sources resampled once", f32, host_frames, ~shrunk, 0.5, 0.005),
+             ("device f32 vs host, sources pre-shrunk", f32, host_frames, shrunk, 3.0, 0.25))
+    for name, got, want, sel, mean_max, share_max in cases:
+        check(bool(torch.isfinite(got).all()), f"{name}: finite")
+        if not bool(sel.any()):
+            print(f"[augment] device_augment {name}: no such image in the batch")
+            continue
+        worst, means, share = pixel_bounds(got[sel], want[sel])
+        print(f"[augment] device_augment {name}, {int(sel.sum())} of B={bsz}, {size}x{size} from "
+              f"{bucket[0]}x{bucket[1]}: max |err| {worst:.3f}, per-image mean max {float(means.max()):.4f} "
+              f"(all {float(means.mean()):.4f}), share of pixels beyond 6 max {float(share.max()):.5f} "
+              f"(bounds {mean_max}, {share_max})")
+        check(float(means.max()) <= mean_max and float(share.max()) <= share_max, f"device_augment {name} within bounds")
+    fn = lambda: DA.device_augment(u8, plan16)  # noqa: E731
+    aug_ms = cuda_ms(fn, iters=10)
+    aug_split = device_split(fn, iters=5)
+    s_ = size
+    flops = 2 * bsz * s_ * bucket[0] * bucket[1] * 3 + 2 * bsz * s_ * bucket[1] * s_ * 3
+    nbytes = u8.numel() + sum(t.numel() * t.element_size() for t in plan16) + bsz * s_ * s_ * 3 * 4
+    print(f"[augment] device_augment bf16 B={bsz}: {aug_ms:.3f} ms/batch events, device "
+          f"{fmt_ms(sum(aug_split.values()) if aug_split else None)}; the two dense matmuls "
+          f"{flops / 1e9:.1f} GFLOP (bf16 peak 989 TFLOP/s: {flops / 989e12 * 1e3:.4f} ms), "
+          f"{nbytes / 1e6:.1f} MB in and out ({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms) [{card}]")
+    for name, t in sorted(aug_split.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"[augment]   device {t:.4f} ms {name[:80]}")
+    del f32, bf16, host_frames, host
+    torch.cuda.empty_cache()
+
+    # fit through both loaders.
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw, epochs in (("fit device_augment 2 epochs", dict(device_augment=True), 2),
+                                 ("fit host loader 1 epoch", dict(), 1)):
+            fcfg = dataclasses.replace(tcfg, freeze_epochs=1, total_epochs=epochs, save_period=1, **kw)
+            run_dir = os.path.join(tmp, f"run{len(launches)}")
+            mgr = CheckpointManager(os.path.join(run_dir, "ckpt"))
+            t0 = time.perf_counter()
+            st = driven(name, lambda: T.fit(preset, fcfg, ds, log_dir=os.path.join(run_dir, "logs"),
+                                            checkpoint_manager=mgr, device=dev))
+            secs = time.perf_counter() - t0
+            rows = open(os.path.join(run_dir, "logs", "metrics.csv")).read().splitlines()[1:]
+            print(f"[augment] {name}: {secs:.1f} s, checkpoints {mgr.all_steps()}, step {st.step}, "
+                  f"metrics.csv {rows}")
+            check(mgr.all_steps() == list(range(1, epochs + 1)) and st.step == 2 * epochs,
+                  f"{name}: a checkpoint per epoch, 2 steps per epoch")
+            check(all(np.isfinite([float(v) for v in r.split(",")[2:6]]).all() for r in rows), f"{name}: losses finite")
+            del st
+    torch.cuda.empty_cache()
+
+    # bf16 steps at batch 34 on the augmented batch: plain, remat,
+    # microbatches=2, device_augment, each from the same init.
+    frames = DA.device_augment(u8, plan16)
+    targets = to_targets(batch_targets([p[2] for p in plans], g), dev)
+    n_valid = int(targets.valid.sum())
+    variants = [
+        ("plain", {}, lambda st, step: step(st, frames, targets, anchors)),
+        ("remat", dict(remat=True), lambda st, step: step(st, frames, targets, anchors)),
+        ("microbatches=2", dict(microbatches=2), lambda st, step: step(st, frames, targets, anchors)),
+        ("device_augment", dict(device_augment=True), lambda st, step: step(st, u8, plan16, targets, anchors)),
+    ]
+    step_ms = {}
+    for name, kw, call in variants:
+        vcfg = dataclasses.replace(tcfg, **kw)
+        st = T.create_train_state(preset, vcfg, 1, device=dev)
+        step = T.make_train_step(preset, vcfg)
+        loss = driven(f"train_step bf16 bs{bsz} {name}", lambda: float(call(st, step)[1]["loss"]))
+        check(np.isfinite(loss), f"{name} step: loss finite")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms[name] = back_to_back_ms(lambda: call(st, step), iters=8, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = device_ms(lambda: call(st, step), iters=3)
+        print(f"[augment] train step bf16 bs{bsz} {size}x{size} {name}: back-to-back {step_ms[name]:.3f} ms/step "
+              f"({1000 * bsz / step_ms[name]:.1f} img/s), device busy {fmt_ms(busy)}/step, peak memory "
+              f"{peak:.2f} GiB, first loss {loss:.4f}, {n_valid} valid GTs [{card}]")
+        if name in ("plain", "device_augment"):
+            # The same steps fed from CPU batches, as fit feeds them.
+            cpu_targets = tuple(t.cpu() for t in targets)
+            if name == "plain":
+                cpu_batch = (frames.cpu(), None, *cpu_targets)
+                run = lambda b: step(st, b[0], type(targets)(*b[2:]), anchors)  # noqa: E731
+            else:
+                cpu_batch = (u8.cpu(), DA.AugmentPlanTaps(*(t.cpu() for t in plan16)), *cpu_targets)
+                run = lambda b: step(st, b[0], b[1], type(targets)(*b[2:]), anchors)  # noqa: E731
+            fed_steps(f"{name} bf16", cpu_batch, run, dev, step_ms[name], card)
+        if name == "device_augment":
+            aug_state, aug_step = st, step
+        else:
+            del st
+        torch.cuda.empty_cache()
+
+    # The plain step at float32 from a batch already in pinned memory: its
+    # device time exceeds the host's enqueue time, so a copy on the compute
+    # stream delays it and one on a side stream should not.
+    p32 = dataclasses.replace(preset, compute_dtype="float32")
+    st, step = T.create_train_state(p32, tcfg, 1, device=dev), T.make_train_step(p32, tcfg)
+    resident = back_to_back_ms(lambda: step(st, frames, targets, anchors), iters=4, warmup=1)
+    cpu_batch = (frames.cpu().pin_memory(), None, *(t.cpu().pin_memory() for t in targets))
+    fed_steps("plain f32, batch pinned", cpu_batch, lambda b: step(st, b[0], type(targets)(*b[2:]), anchors),
+              dev, resident, card)
+    del st, step, cpu_batch
+    torch.cuda.empty_cache()
+
+    # fit's epoch on the device loader, 8 steps (the 68 images 4 times, each
+    # draw its own), fed by prefetch_to_device against copies on the compute
+    # stream, in turns; then one epoch on the host loader.
+    rep = RepeatedDataset(ds, 4)
+    with tempfile.TemporaryDirectory() as tmp:
+
+        def fit_epoch_s(feed, **kw):
+            fcfg = dataclasses.replace(tcfg, freeze_epochs=0, total_epochs=1, **kw)
+            prefetch, T.prefetch_to_device = T.prefetch_to_device, feed
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                T.fit(preset, fcfg, rep, log_dir=tmp, init_state=aug_state, device=dev)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+            finally:
+                T.prefetch_to_device = prefetch
+
+        feeds = {"compute": copies_on_compute_stream, "side": T.prefetch_to_device}
+        turns = {k: [] for k in feeds}
+        for k in ("compute", "side", "side", "compute"):
+            turns[k].append(fit_epoch_s(feeds[k], device_augment=True))
+        host_s = fit_epoch_s(T.prefetch_to_device)
+    n_steps = len(rep) // bsz
+    print(f"[augment] fit, one epoch of {n_steps} steps ({len(rep)} images), s/epoch (host clock, the "
+          f"loader's first two batches included): device loader in turns C S S C, copies on the compute "
+          f"stream (C) {[round(v, 3) for v in turns['compute']]}, prefetch_to_device (S) "
+          f"{[round(v, 3) for v in turns['side']]}: {n_steps / statistics.median(turns['side']):.2f} steps/s (S); "
+          f"host loader (S) {host_s:.3f} s, {n_steps / host_s:.2f} steps/s [{card}]")
+
+    # Where the time of a device-augment step goes.
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            aug_step(aug_state, u8, plan16, targets, anchors)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000 / 3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1000 / 3
+    print(f"[profile] device-augment step bf16 bs{bsz} under the profiler: wall {wall_ms:.3f} ms/step, "
+          f"device busy {busy_ms:.3f} ms/step, idle share {1 - busy_ms / wall_ms:.3f} [{card}]")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[profile]   {e.self_device_time_total / 1000 / 3:8.3f} ms/step "
+              f"{e.count // 3:5d}x {e.key[:90]}")
+    del aug_state
+    torch.cuda.empty_cache()
+
+    # K2 on the augmented batch's targets.
+    boxes, valid = targets.boxes, targets.valid
+    got = matching_cuda.match_front(boxes, anchors, valid)
+    want = M.match_front_plain(boxes, anchors, valid)
+    torch.cuda.synchronize()
+    err = max(float((x.double() - y.double()).abs().max()) for x, y in zip(got, want))
+    bits = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    check(err == 0.0 and bits and all(torch.equal(x, y) for x, y in zip(got, want)),
+          "K2 == plain on the augmented targets")
+    ms = cuda_ms(lambda: matching_cuda.match_front(boxes, anchors, valid), iters=50)
+    dev_ms = device_ms(lambda: matching_cuda.match_front(boxes, anchors, valid))
+    p = anchors.shape[0]
+    kbytes = boxes.numel() * 4 + valid.numel() + anchors.numel() * 4 + bsz * p * (4 + 8) + bsz * g * 8
+    bytes_ms = kbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = match_ops(boxes, valid, anchors, matching_cuda._library().jabd_match_tile()) / F32_FLOPS * 1e3
+    print(f"[augment] K2 match_front on the augmented targets, B={bsz} G={g} P={p}, {n_valid} valid GTs: "
+          f"bit-identical to plain; kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), bytes bound "
+          f"{bytes_ms:.6f} ms, operations bound {ops_ms:.6f} ms [{card}]")
+    print(f"[augment] K2 launches per path {launches}")
+    return {"launches": sum(launches.values()), "max_abs_err": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -797,7 +1214,12 @@ def main() -> int:
     k2 = train_phase(card, dev, preset)
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_worst)
 
-    # -- phase 6: the kernels line -------------------------------------------
+    # -- phase 6: training input ---------------------------------------------
+    k2_aug = augment_phase(card, dev, preset)
+    k2["launches"] += k2_aug["launches"]
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_aug["max_abs_err"])
+
+    # -- phase 7: the kernels line -------------------------------------------
     kernels = [{
         "name": "nms_keep_sorted",
         "route": "cuda",

@@ -128,9 +128,10 @@ class TrainConfig:
     Reference: two-phase loop in `train_mobilenetV3_ecagai.py:553-615`
     (Adam lr 1e-3 freeze / 1e-4 unfreeze, weight decay 5e-4, StepLR
     gamma 0.92/epoch), MultiBoxLoss(2, 0.35, 7) at :475, loc_weight 2.0.
-    Every field and default of the JAX package's TrainConfig; the port's
-    `train.py` raises NotImplementedError for `remat`, `microbatches > 1`,
-    `device_augment` and `fsdp`, which later slices bring.
+    Every field and default of the JAX package's TrainConfig. The port's
+    `train.py` runs `remat`, `microbatches > 1` and `device_augment`, alone
+    or combined; it raises NotImplementedError for `fsdp`, which the
+    parallelism slice brings.
     """
 
     batch_size: int = 34

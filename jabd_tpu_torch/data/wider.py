@@ -1,23 +1,32 @@
-"""WIDER FACE training batches: label parsing, padded targets, the
-shuffled epoch skeleton and `train_loader`.
+"""WIDER FACE training data: label parsing, the reference's augmentation,
+the dataset, padded targets, the shuffled epoch skeleton and
+`train_loader`.
 
-Port of the numpy parts of `jabd_tpu/data/wider.py` (`parse_wider_labels`,
-`batch_targets`, `sample_rng`, `epoch_batches`, `backfill_batch`,
-`train_loader`). Targets are padded to a static [B, G, 15] layout with a
-validity mask instead of the reference's ragged list, and a sample that
-loses every box to augmentation is re-drawn, then replaced by a survivor,
-so that every batch is full (the reference's detection_collate drops
-it). The dataset is any object with `__len__` and `get(idx, rng)`
-returning (float32 HWC image, [N, 15] target); the WIDER image dataset
-with the PIL/cv2 augmentation comes in a later slice.
+Port of `jabd_tpu/data/wider.py`. Targets are padded to a static
+[B, G, 15] layout with a validity mask instead of the reference's ragged
+list, and a sample that loses every box to augmentation is re-drawn, then
+replaced by a survivor, so that every batch is full (the reference's
+detection_collate drops it). `train_loader` takes any dataset with
+`__len__` and `get(idx, rng)` returning (float32 HWC image, [N, 15]
+target); `WiderFaceDataset` is the one over a label.txt.
+
+`augment_sample` takes a decoded uint8 RGB array: its resize is
+`ops/image.pil_bicubic_resize` (PIL's bicubic, byte for byte, in numpy)
+and its HSV jitter is `ops/image.hsv_jitter` on a CPU tensor, the function
+the device augmentation runs too. Only `WiderFaceDataset.load_image` needs
+PIL, to decode a file.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import dataclasses
 from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from jabd_tpu_torch.ops.image import hsv_jitter, pil_bicubic_resize, preprocess_input_np
 
 
 def parse_wider_labels(txt_path: str) -> Tuple[List[str], List[np.ndarray]]:
@@ -58,6 +67,180 @@ def parse_wider_labels(txt_path: str) -> Tuple[List[str], List[np.ndarray]]:
             a[i, 14] = -1.0 if a[i, 4] < 0 else 1.0
         annos.append(a)
     return imgs_path, annos
+
+
+@dataclasses.dataclass(frozen=True)
+class AugmentDraw:
+    """The random decisions of one `get_random_data` call
+    (utils/dataloader.py:71-113), apart from the pixel work, so that the
+    host and the device pipelines share one RNG consumption order and one
+    box geometry."""
+
+    nw: int  # resized width before paste
+    nh: int  # resized height
+    dx: int  # paste offset x (can be negative)
+    dy: int  # paste offset y
+    flip: bool
+    dh: float  # hue shift (fraction; applied as dh*360 in cv2 H degrees)
+    ds: float  # saturation scale
+    dv: float  # value scale
+
+
+def draw_augment_params(
+    rng: np.random.Generator,
+    input_size: int,
+    jitter: float = 0.3,
+    hue: float = 0.1,
+    sat: float = 1.5,
+    val: float = 1.5,
+) -> AugmentDraw:
+    """Consume RNG draws in exactly the reference's order
+    (utils/dataloader.py:78-113): aspect (2 draws), scale, dx, dy, flip,
+    hue, sat (cond+value), val (cond+value)."""
+
+    def rand(a=0.0, b=1.0):
+        return rng.random() * (b - a) + a
+
+    h = w = input_size
+    new_ar = (w / h) * rand(1 - jitter, 1 + jitter) / rand(1 - jitter, 1 + jitter)
+    scale = rand(0.25, 3.25)
+    if new_ar < 1:
+        nh = int(scale * h)
+        nw = int(nh * new_ar)
+    else:
+        nw = int(scale * w)
+        nh = int(nw / new_ar)
+    # nw/nh stay raw (box math uses them); resize callers clamp to >= 1.
+    # rand(0, w-nw) also when w-nw is negative (u*(w-nw), u~U[0,1)): the
+    # paste offset depends on this form (utils/dataloader.py:92-93).
+    dx = int(rand(0, w - nw))
+    dy = int(rand(0, h - nh))
+    flip = rand() < 0.5
+    dh = rand(-hue, hue)
+    ds = rand(1, sat) if rand() < 0.5 else 1 / rand(1, sat)
+    dv = rand(1, val) if rand() < 0.5 else 1 / rand(1, val)
+    return AugmentDraw(nw, nh, dx, dy, flip, dh, ds, dv)
+
+
+def transform_boxes(
+    box: np.ndarray,
+    draw: AugmentDraw,
+    image_wh: Tuple[int, int],
+    input_size: int,
+    rng: np.random.Generator,
+) -> np.ndarray:
+    """Apply the draw's geometry to [N, 15] annotations: shuffle, map to
+    canvas coords, flip remap, center filter, clip, >1px filter, zero
+    flagged landmarks, normalize (utils/dataloader.py:115-147).
+
+    The one draw here (`rng.shuffle`) comes AFTER all of
+    `draw_augment_params`'s draws, as in the reference."""
+    iw, ih = image_wh
+    h = w = input_size
+    nw, nh, dx, dy = draw.nw, draw.nh, draw.dx, draw.dy
+    box = box.copy()
+    xs = [0, 2, 4, 6, 8, 10, 12]
+    ys = [1, 3, 5, 7, 9, 11, 13]
+    if len(box) > 0:
+        rng.shuffle(box)
+        box[:, xs] = box[:, xs] * nw / iw + dx
+        box[:, ys] = box[:, ys] * nh / ih + dy
+        if draw.flip:
+            box[:, xs] = w - box[:, [2, 0, 6, 4, 8, 12, 10]]
+            box[:, [5, 7, 9, 11, 13]] = box[:, [7, 5, 9, 13, 11]]
+
+        cx = (box[:, 0] + box[:, 2]) / 2
+        cy = (box[:, 1] + box[:, 3]) / 2
+        keep = (cx > 0) & (cy > 0) & (cx < w) & (cy < h)
+        box = box[keep]
+
+        box[:, 0:14][box[:, 0:14] < 0] = 0
+        box[:, xs] = np.minimum(box[:, xs], w)
+        box[:, ys] = np.minimum(box[:, ys], h)
+        bw = box[:, 2] - box[:, 0]
+        bh = box[:, 3] - box[:, 1]
+        box = box[(bw > 1) & (bh > 1)]
+
+    if len(box) > 0:
+        box[:, 4:-1][box[:, -1] == -1] = 0
+        box[:, xs] /= w
+        box[:, ys] /= h
+    return box.astype(np.float32)
+
+
+def augment_sample(
+    image: np.ndarray,  # [H, W, 3] uint8 RGB
+    box: np.ndarray,  # [N, 15]
+    input_size: int,
+    rng: np.random.Generator,
+    jitter: float = 0.3,
+    hue: float = 0.1,
+    sat: float = 1.5,
+    val: float = 1.5,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The reference `get_random_data` recipe (utils/dataloader.py:71-149):
+    random aspect jitter +-0.3, scale 0.25-3.25, PIL BICUBIC resize, random
+    paste on a 128-grey canvas, hflip 0.5 with landmark index remap, HSV
+    jitter, box clip/filter > 1 px, normalize coords, zero landmarks where
+    flag == -1. Returns (float32 HWC image [not mean-subtracted], [M, 15]
+    normalized targets).
+
+    Only the part of the resized image that lands on the canvas is
+    computed (byte-identical to resizing all of it and pasting).
+
+    Intentional deviation, as the JAX package's: the reference's
+    upper-bound clip `box[:, cols][box[:, cols] > w] = w`
+    (utils/dataloader.py:138-139) assigns into a fancy-indexed COPY and is
+    a silent no-op, so its boxes can exceed the canvas. This clips for
+    real (np.minimum), which only changes boxes the reference left
+    overflowing.
+    """
+    ih, iw = image.shape[:2]
+    h = w = input_size
+    draw = draw_augment_params(rng, input_size, jitter, hue, sat, val)
+
+    nw, nh = max(draw.nw, 1), max(draw.nh, 1)
+    x0, y0 = max(draw.dx, 0), max(draw.dy, 0)  # pasted span on the canvas
+    x1, y1 = min(draw.dx + nw, w), min(draw.dy + nh, h)
+    canvas = np.full((h, w, 3), 128, np.uint8)
+    if x1 > x0 and y1 > y0:
+        window = (x0 - draw.dx, y0 - draw.dy, x1 - draw.dx, y1 - draw.dy)
+        canvas[y0:y1, x0:x1] = pil_bicubic_resize(image, (nw, nh), window)
+    if draw.flip:
+        canvas = canvas[:, ::-1]
+
+    rgb = torch.from_numpy(canvas.astype(np.float32))
+    image_data = hsv_jitter(rgb, draw.dh * 360, draw.ds, draw.dv).numpy()
+
+    box = transform_boxes(box, draw, (iw, ih), input_size, rng)
+    return image_data, box
+
+
+class WiderFaceDataset:
+    """Map-style dataset over a WIDER label.txt (training split).
+
+    `load_image(idx)` decodes one image to uint8 RGB (PIL, imported when
+    called: without PIL it raises ImportError); the host loader (`get`)
+    and `device_augment.device_train_loader` both decode through it."""
+
+    def __init__(self, txt_path: str, input_size: int, seed: int = 0):
+        self.input_size = input_size
+        self.imgs_path, self.annos = parse_wider_labels(txt_path)
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return len(self.imgs_path)
+
+    def load_image(self, index: int) -> np.ndarray:
+        from PIL import Image
+
+        with Image.open(self.imgs_path[index]) as img:
+            return np.asarray(img.convert("RGB"), np.uint8)
+
+    def get(self, index: int, rng: np.random.Generator):
+        image = self.load_image(index)
+        img_data, target = augment_sample(image, self.annos[index], self.input_size, rng)
+        return preprocess_input_np(img_data), target
 
 
 def batch_targets(

@@ -18,6 +18,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from jabd_tpu_torch.ops import resize as R
 
@@ -45,6 +46,15 @@ ACTIVATIONS = {
     "hsigmoid": hsigmoid,
     "none": lambda x: x,
 }
+
+
+def segment(fn, x, remat: bool):
+    """fn(x), or with remat under a non-reentrant checkpoint: backward
+    recomputes the segment's activations instead of keeping them, so only
+    its input stays alive between the forward and the backward."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
 
 
 def eca_kernel_size(channels: int, b: int = 1, gamma: int = 2) -> int:

@@ -8,7 +8,7 @@ from typing import Optional, Sequence, Tuple
 import torch.nn as nn
 import torch.nn.functional as F
 
-from jabd_tpu_torch.models.layers import ECA, BatchNorm2d, ConvBN, SEModule, fold_conv_bn, hswish
+from jabd_tpu_torch.models.layers import ECA, BatchNorm2d, ConvBN, SEModule, fold_conv_bn, hswish, segment
 
 
 class MNV3Block(nn.Module):
@@ -139,11 +139,12 @@ class MobileNetV3Backbone(nn.Module):
                 names.append(name)
             self.stage_names.append(names)
 
-    def forward(self, x):
-        h = hswish(self.stem(x))
+    def forward(self, x, remat: bool = False):
+        """remat checkpoints the stem and each block as a segment."""
+        h = segment(lambda t: hswish(self.stem(t)), x, remat)
         taps = []
         for names in self.stage_names:
             for name in names:
-                h = getattr(self, name)(h)
+                h = segment(getattr(self, name), h, remat)
             taps.append(h)
         return taps

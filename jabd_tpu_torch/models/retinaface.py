@@ -68,16 +68,21 @@ class RetinaFace(nn.Module):
             self.add_module(f"class_head{i + 1}", L.PredictionHead(c, 2, a))
             self.add_module(f"landmark_head{i + 1}", L.PredictionHead(c, 10, a))
 
-    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def forward(
+        self, images: torch.Tensor, remat: bool = False
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """remat (training) checkpoints the graph in segments, each
+        recomputed in backward on its own: the stem and every backbone
+        block, the FPN, each level's SSH."""
         cfg = self.cfg
         x = images.to(self.backbone.stem.conv.weight.dtype)
-        taps = self.backbone(x)[: cfg.num_levels]
+        taps = self.backbone(x, remat)[: cfg.num_levels]
         if cfg.tap_attention:
             taps = [getattr(self, f"eca_tap{i + 1}")(t) for i, t in enumerate(taps)]
-        feats = self.fpn(taps)
+        feats = L.segment(self.fpn, taps, remat)
         if self.eca_fpn is not None:
             feats = [self.eca_fpn(f) for f in feats]
-        feats = [getattr(self, f"ssh{i + 1}")(f) for i, f in enumerate(feats)]
+        feats = [L.segment(getattr(self, f"ssh{i + 1}"), f, remat) for i, f in enumerate(feats)]
 
         def heads(name):
             return torch.cat(

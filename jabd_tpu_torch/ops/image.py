@@ -2,7 +2,12 @@
 
 Port of `jabd_tpu/ops/image.py` (`preprocess_input_np`,
 `serving_front_end`, `letterbox_np`, `letterbox_params`,
-`correct_boxes_scale_offset`). The JAX package letterboxes with
+`correct_boxes_scale_offset`); `pil_bicubic_resize`, the uint8
+`PIL.Image.resize(..., Image.BICUBIC)` that the JAX package's training
+augmentation calls, in numpy; and the training augmentation's HSV jitter
+in cv2's float HSV space (`hsv_jitter`), the one definition that the host
+(`data/wider.augment_sample`) and the card (`data/device_augment`) both
+run. The JAX package letterboxes with
 `cv2.resize`; cv2 is not a dependency of the port, so the resize here is
 torch bilinear with half-pixel centres and clamped edge taps, which is
 cv2's INTER_LINEAR (and, at an exact 2x downscale, equals the INTER_AREA
@@ -16,9 +21,13 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from jabd_tpu_torch.ops.resize import _pil_bicubic_filter
 
 MEANS = (104.0, 117.0, 123.0)
 LETTERBOX_FILL = 84.0  # the reference letterbox's grey (not 128)
@@ -27,6 +36,65 @@ LETTERBOX_FILL = 84.0  # the reference letterbox's grey (not 128)
 def preprocess_input_np(image: np.ndarray) -> np.ndarray:
     """Subtract the channel means."""
     return image - np.asarray(MEANS, dtype=np.float32)
+
+
+def rgb_to_hsv_cv2(rgb: torch.Tensor) -> torch.Tensor:
+    """cv2 COLOR_RGB2HSV float semantics: rgb in [0,1] -> (H in [0,360],
+    S, V in [0,1]), as OpenCV's RGB2HSV_f (FLT_EPSILON-guarded divisions,
+    channel-priority tie-breaks)."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    v = torch.maximum(torch.maximum(r, g), b)
+    vmin = torch.minimum(torch.minimum(r, g), b)
+    diff = v - vmin
+    eps = float(np.finfo(np.float32).eps)
+    s = diff / (v.abs() + eps)
+    k = 60.0 / (diff + eps)
+    h = torch.where(
+        v == r,
+        (g - b) * k,
+        torch.where(v == g, (b - r) * k + 120.0, (r - g) * k + 240.0),
+    )
+    h = torch.where(h < 0, h + 360.0, h)
+    return torch.stack([h, s, v], dim=-1)
+
+
+def hsv_to_rgb_cv2(hsv: torch.Tensor) -> torch.Tensor:
+    """cv2 COLOR_HSV2RGB float semantics: (H [0,360], S, V [0,1]) -> rgb in
+    [0,1] (OpenCV HSV2RGB_f sector table)."""
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    h = h / 60.0
+    sector = torch.floor(h)
+    f = h - sector
+    sector = torch.remainder(sector.to(torch.int32), 6)
+    tab = (v, v * (1.0 - s), v * (1.0 - s * f), v * (1.0 - s * (1.0 - f)))
+    # OpenCV's sector_data, RGB order: per sector the (r, g, b) tab picks.
+    picks = ((0, 3, 1), (2, 0, 1), (1, 0, 3), (1, 2, 0), (3, 1, 0), (0, 1, 2))
+
+    def channel(c):
+        out = tab[picks[5][c]]
+        for sec in range(4, -1, -1):
+            out = torch.where(sector == sec, tab[picks[sec][c]], out)
+        return out
+
+    return torch.stack([channel(0), channel(1), channel(2)], dim=-1)
+
+
+def hsv_jitter(rgb: torch.Tensor, dh, ds, dv) -> torch.Tensor:
+    """The reference's HSV jitter (utils/dataloader.py:105-113) of float
+    rgb [..., 3] in [0, 255], in cv2's float HSV space: hue + dh (degrees),
+    saturation * ds, value * dv, clipped, back to rgb in [0, 255]. dh, ds
+    and dv are numbers or tensors that broadcast against rgb[..., 0].
+
+    The reference's H > 1 quirk is kept as is: it wraps the hue by 1 as if
+    H ran over [0, 1], while cv2's H runs over [0, 360]."""
+    hsv = rgb_to_hsv_cv2(rgb / 255.0)
+    h = hsv[..., 0] + dh
+    h = torch.where(h > 1.0, h - 1.0, h)
+    h = torch.where(h < 0.0, h + 1.0, h)
+    s = hsv[..., 1] * ds
+    v = hsv[..., 2] * dv
+    hsv = torch.stack([h.clamp(0.0, 360.0), s.clamp(0.0, 1.0), v.clamp(0.0, 1.0)], dim=-1)
+    return hsv_to_rgb_cv2(hsv) * 255.0
 
 
 def resize_np(image: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
@@ -85,3 +153,86 @@ def correct_boxes_scale_offset(
     offset = (input_shape - new_shape) / 2.0 / input_shape  # (y, x)
     scale = input_shape / new_shape  # (y, x)
     return (offset[1], offset[0]), (scale[1], scale[0])
+
+
+# Pillow's 8-bit resample (libImaging/Resample.c): coefficients in fixed
+# point with PRECISION_BITS fractional bits, int32 sums started at half a
+# unit, each pass clipped to uint8.
+PIL_PRECISION_BITS = 32 - 8 - 2
+
+
+def pil_fixed_taps(in_size: int, out_size: int):
+    """Resample.c precompute_coeffs + normalize_coeffs_8bpc for the bicubic
+    filter, in its own float64 operation order: per output index the first
+    source tap, the tap count and the fixed-point weights [out, ksize]
+    (zero past the count). `resize.pil_bicubic_taps` is the same filter in
+    float32, for the device's matmuls."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    ss = 1.0 / filterscale
+    # (int) casts truncate toward zero, as astype does.
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    count = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
+    k = np.zeros((out_size, ksize))
+    ww = np.zeros(out_size)
+    for x in range(ksize):  # the C loop's order: sum tap by tap
+        w = np.where(x < count, _pil_bicubic_filter(((x + xmin) - center + 0.5) * ss), 0.0)
+        k[:, x] = w
+        ww += w
+    k = np.divide(k, ww[:, None], out=k, where=ww[:, None] != 0.0)
+    scaled = k * (1 << PIL_PRECISION_BITS)
+    fixed = np.trunc(np.where(k < 0, scaled - 0.5, scaled + 0.5)).astype(np.int32)
+    return xmin, count, fixed
+
+
+def _pil_pass(image: np.ndarray, axis: int, xmin, fixed) -> np.ndarray:
+    """One Resample.c 8bpc pass along `axis` (0 rows, 1 columns) of a
+    uint8 [H, W, C] image: int32 sums from 1 << (PRECISION_BITS - 1),
+    clipped to [0, 255] after the shift. Integer sums do not depend on
+    their order, so the pass runs tap by tap over whole rows."""
+    x = np.moveaxis(image, axis, 0)
+    n_in = x.shape[0]
+    rows = np.ascontiguousarray(x).reshape(n_in, -1)
+    acc = np.full((len(xmin), rows.shape[1]), 1 << (PIL_PRECISION_BITS - 1), np.int32)
+    for k in range(fixed.shape[1]):
+        # Taps past a row's count have weight 0; clamp their index.
+        acc += rows[np.minimum(xmin + k, n_in - 1)] * fixed[:, k : k + 1]
+    out = np.clip(acc >> PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out.reshape((len(xmin),) + x.shape[1:]), 0, axis)
+
+
+def pil_bicubic_resize(
+    image: np.ndarray, size_wh: Tuple[int, int], window=None
+) -> np.ndarray:
+    """`PIL.Image.fromarray(image).resize(size_wh, Image.BICUBIC)` of a
+    uint8 [H, W, C] image, byte for byte: the horizontal pass first, then
+    the vertical one, each skipped when its size is unchanged.
+
+    window (x0, y0, x1, y1) computes only that part of the output (as the
+    full resize cropped to it, byte for byte): each output pixel depends
+    on its own taps only."""
+    h, w = image.shape[:2]
+    ow, oh = size_wh
+    x0, y0, x1, y1 = window if window is not None else (0, 0, ow, oh)
+    out = image
+    if (oh, ow) == (h, w):
+        return np.ascontiguousarray(image[y0:y1, x0:x1])
+    ymin, ycount, yfixed = pil_fixed_taps(h, oh) if oh != h else (None, None, None)
+    if ow != w:
+        xmin, _, xfixed = pil_fixed_taps(w, ow)
+        if oh != h:  # only the source rows the vertical taps read
+            first = int(ymin[y0:y1].min())
+            last = int((ymin[y0:y1] + ycount[y0:y1]).max())
+        else:
+            first, last = y0, y1
+        out = _pil_pass(image[first:last], 1, xmin[x0:x1], xfixed[x0:x1])
+        if oh != h:
+            ymin = ymin - first
+    else:
+        out = image[:, x0:x1]
+    if oh != h:
+        out = _pil_pass(out, 0, ymin[y0:y1], yfixed[y0:y1])
+    return np.ascontiguousarray(out)

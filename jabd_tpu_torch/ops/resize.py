@@ -1,6 +1,7 @@
-"""Resize and adaptive average pooling on NCHW tensors.
+"""Resize and adaptive average pooling on NCHW tensors, and the
+per-sample resample plans of device augmentation.
 
-Port of `resize` / `adaptive_avg_pool` of `jabd_tpu/ops/resize.py`. The
+Port of `jabd_tpu/ops/resize.py`. For `resize` / `adaptive_avg_pool` the
 JAX package builds per-axis interpolation matrices with torch semantics
 (bicubic A = -0.75, `align_corners=True` index mapping, nearest as
 floor(i * in / out), adaptive bins [floor(i*in/out), ceil((i+1)*in/out)))
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,3 +39,219 @@ def resize(
 def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """nn.AdaptiveAvgPool2d on NCHW x."""
     return F.adaptive_avg_pool2d(x, tuple(out_hw))
+
+
+# ---------------------------------------------------------------------------
+# Per-sample tap builders (host, numpy) and the batched resample (device).
+#
+# Copied from `jabd_tpu/ops/resize.py`. The geometry varies per sample
+# (device augmentation): the host builds, per image and axis, the taps of
+# a PIL-bicubic resize composed with a paste offset and a flip; the device
+# turns them into dense [canvas, bucket] matrices and applies them as two
+# batched matmuls. One shape covers any mix of source sizes.
+# ---------------------------------------------------------------------------
+
+_PIL_A = -0.5  # PIL's bicubic coefficient (vs torch/cv2's -0.75)
+
+
+def _pil_bicubic_filter(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic kernel (Resample.c bicubic_filter, a=-0.5)."""
+    a = _PIL_A
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0
+    far = (((x - 5.0) * x + 8.0) * x - 4.0) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+def pil_bicubic_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """PIL precompute_coeffs: per output index, first source tap +
+    normalized ANTIALIASED weights (support widens on downscale).
+
+    Returns (xmin [out], weights [out, ksize]); taps are the contiguous
+    range xmin..xmin+ksize-1 with trailing zero weights past the window
+    (all real-tap indices stay inside [0, in_size))."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.clip((center - support + 0.5).astype(np.int64), 0, None)
+    xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size)
+    count = xmax - xmin
+
+    taps = xmin[:, None] + np.arange(ksize)[None, :]
+    w = _pil_bicubic_filter((taps - center[:, None] + 0.5) / filterscale)
+    w = np.where(np.arange(ksize)[None, :] < count[:, None], w, 0.0)
+    ww = w.sum(axis=1, keepdims=True)
+    w = np.divide(w, ww, out=np.zeros_like(w), where=ww != 0.0)
+    return xmin, w.astype(np.float32)
+
+
+def paste_resize_matrix(
+    in_size: int,
+    out_len: int,
+    offset: int,
+    canvas: int,
+    bucket: int,
+    flip: bool = False,
+    taps=pil_bicubic_taps,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Dense [canvas, bucket] matrix composing a resize (in_size ->
+    out_len, semantics from `taps`) with a paste at `offset` (negative
+    crops) and an optional output flip. Rows outside the pasted span are
+    all-zero; `inside` marks pasted rows (callers add the gray fill).
+
+    The augmentation ships the taps form (`paste_resize_taps`); this dense
+    form is what `expand_taps` must rebuild from it, and the tests hold it
+    there."""
+    m = np.zeros((canvas, bucket), np.float32)
+    inside = np.zeros((canvas,), np.float32)
+    eff = max(out_len, 1)
+    xmin, w = taps(in_size, eff)
+    ksize = w.shape[1]
+
+    lo = max(0, offset)
+    hi = min(canvas, offset + eff)
+    if hi > lo:
+        o = np.arange(lo, hi)  # canvas indices covered by the paste
+        u = o - offset  # resized-image indices
+        cols = np.minimum(
+            xmin[u][:, None] + np.arange(ksize)[None, :], in_size - 1
+        )
+        # Rows whose zero-weight tail taps clip onto in_size-1 need
+        # accumulating writes (duplicate columns; numpy fancy assignment
+        # does NOT guarantee write order). Those are only the few
+        # right-edge rows — everything else takes the ~5x faster unique-
+        # column fancy assignment.
+        clipped = xmin[u] > in_size - ksize
+        clean = ~clipped
+        if clean.any():
+            m[o[clean][:, None], cols[clean]] = w[u][clean]
+        if clipped.any():
+            np.add.at(
+                m, (o[clipped][:, None], cols[clipped]), w[u][clipped]
+            )
+        inside[lo:hi] = 1.0
+    if flip:
+        # Negative-stride views are fine: batch assembly copies.
+        m = m[::-1]
+        inside = inside[::-1]
+    return m, inside
+
+
+# Static tap budget of the compact (taps-form) plan shipping. Rows never
+# carry more than TAPS_K weights because plan builders pre-shrink any
+# source axis whose downscale factor exceeds TAPS_FSCAP (antialiased
+# support 2*fscale per side -> ksize = 2*ceil(2*fscale)+1 <= 31).
+TAPS_FSCAP = 7.5
+TAPS_K = 32
+
+
+def paste_resize_taps(
+    in_size: int,
+    out_len: int,
+    offset: int,
+    canvas: int,
+    flip: bool = False,
+    taps=pil_bicubic_taps,
+    k_max: int = TAPS_K,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Compact (taps-form) equivalent of `paste_resize_matrix`: per canvas
+    row, the first source tap index and k_max weights, instead of a dense
+    [canvas, bucket] matrix (bucket/k_max times fewer bytes to ship to the
+    device, which rebuilds the dense matrix with `expand_taps`).
+
+    Returns (xmin [canvas] int32, w [canvas, k_max] float32,
+    inside [canvas] float32). Rows outside the pasted span have all-zero
+    weights. Requires in_size <= TAPS_FSCAP * max(out_len, 1) * 2 + k_max
+    headroom — callers guarantee it by pre-shrinking (see
+    device_augment.plan_sample); asserts otherwise.
+    """
+    xmin_c = np.zeros((canvas,), np.int32)
+    w_c = np.zeros((canvas, k_max), np.float32)
+    inside = np.zeros((canvas,), np.float32)
+    eff = max(out_len, 1)
+    xmin, w = taps(in_size, eff)
+    ksize = w.shape[1]
+
+    lo = max(0, offset)
+    hi = min(canvas, offset + eff)
+    if hi > lo:
+        o = np.arange(lo, hi)  # canvas indices covered by the paste
+        u = o - offset  # resized-image indices
+        if ksize > k_max:
+            # Trailing taps past each row's count are zero-weight; they
+            # only exceed k_max when the antialias window does, which the
+            # pre-shrink contract forbids. Verify, then truncate.
+            assert not np.any(w[u][:, k_max:] != 0.0), (
+                "tap window exceeds TAPS_K — caller must pre-shrink "
+                f"(in={in_size}, out={out_len})"
+            )
+        xm = xmin[u].astype(np.int64)
+        wr = np.zeros((len(u), k_max), np.float32)
+        wr[:, : min(ksize, k_max)] = w[u][:, :k_max]
+        # Right-edge clip: dense form accumulates taps clipped onto
+        # in_size-1; re-lay the weights against a shifted window start so
+        # the device needs no per-sample clamp (all xm+k either fall
+        # inside the source or carry zero weight).
+        clipped = xm > in_size - min(ksize, k_max)
+        for r in np.nonzero(clipped)[0]:
+            cols = np.minimum(xm[r] + np.arange(k_max), in_size - 1)
+            new_xm = max(0, min(int(xm[r]), in_size - k_max))
+            neww = np.zeros((k_max,), np.float32)
+            np.add.at(neww, cols - new_xm, wr[r])
+            xm[r] = new_xm
+            wr[r] = neww
+        xmin_c[lo:hi] = xm
+        w_c[lo:hi] = wr
+        inside[lo:hi] = 1.0
+    if flip:
+        xmin_c = xmin_c[::-1]
+        w_c = w_c[::-1]
+        inside = inside[::-1]
+    return xmin_c, w_c, inside
+
+
+def expand_taps(
+    xmin: torch.Tensor,  # [B, S] integer
+    w: torch.Tensor,  # [B, S, K]
+    bucket: int,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The dense [B, S, bucket] resample matrix of a taps-form plan: row
+    (b, s) holds w[b, s, k] at column xmin[b, s] + k. The K columns of a
+    row are distinct, so one scatter writes them; columns past the bucket
+    carry zero weight and land in a margin that is cut off."""
+    b, s, k_max = w.shape
+    idx = xmin.to(torch.int64)[:, :, None] + torch.arange(k_max, device=w.device)
+    dense = torch.zeros((b, s, bucket + k_max), dtype=dtype, device=w.device)
+    dense.scatter_(2, idx, w.to(dtype))
+    return dense[:, :, :bucket]
+
+
+def resample_canvas(
+    images_u8: torch.Tensor,  # [B, bucket_h, bucket_w, 3] uint8
+    mv: torch.Tensor,  # [B, S, bucket_h]
+    mh: torch.Tensor,  # [B, S, bucket_w]
+    inside_v: torch.Tensor,  # [B, S]
+    inside_h: torch.Tensor,  # [B, S]
+    fill: float,
+    resample_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Apply per-sample separable resample+paste matrices and the grey
+    fill: float32 [B, S, S, 3] in [0, 255]. Two batched matmuls in
+    `resample_dtype` (float32 runs at full float32 precision only with
+    TF32 off): rows first, a clip to [0, 255] between them (PIL clamps
+    each pass), then columns, rounded to whole grey levels."""
+    b, bh, bw, c = images_u8.shape
+    s = mv.shape[1]
+    x = images_u8.to(resample_dtype).reshape(b, bh, bw * c)
+    # Vertical: [B, S, bh] x [B, bh, bw*3] -> [B, S(rows), bw, 3].
+    y = torch.bmm(mv.to(resample_dtype), x).clamp_(0.0, 255.0)
+    # Horizontal: [B, S, bw] x [B, bw, S(rows)*3] -> [B, S(cols), S(rows), 3].
+    y = y.view(b, s, bw, c).transpose(1, 2).reshape(b, bw, s * c)
+    y = torch.bmm(mh.to(resample_dtype), y).view(b, s, s, c).transpose(1, 2)
+    y = torch.round(y.float()).clamp_(0.0, 255.0)
+    inside = (inside_v.float()[:, :, None] * inside_h.float()[:, None, :])[..., None]
+    return y * inside + fill * (1.0 - inside)

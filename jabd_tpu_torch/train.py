@@ -25,6 +25,7 @@ float32, as flax computes with dtype=bfloat16 over float32 parameters.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import time
@@ -42,18 +43,9 @@ from jabd_tpu_torch.ops import anchors as A
 def check_supported(train_cfg: configs.TrainConfig) -> None:
     """Raise NotImplementedError for a TrainConfig option the port has
     not brought yet; it never runs something else in its place."""
-    later = []
-    if train_cfg.microbatches > 1:
-        later.append("microbatches > 1 (ghost BatchNorm): a later part of slice 2")
-    if train_cfg.remat:
-        later.append("remat (torch.utils.checkpoint): a later part of slice 2")
-    if train_cfg.device_augment:
-        later.append("device_augment (data/device_augment.py): a later part of slice 2")
     if train_cfg.fsdp:
-        later.append("fsdp: the parallelism slice (slice 6)")
-    if later:
         raise NotImplementedError(
-            "the PyTorch port does not have yet: " + "; ".join(later)
+            "the PyTorch port does not have yet: fsdp: the parallelism slice (slice 6)"
         )
 
 
@@ -158,22 +150,59 @@ def create_train_state(
     return new_phase(state, lr or train_cfg.lr_freeze, freeze_backbone, train_cfg.weight_decay)
 
 
+def _batchnorm_stats(model: torch.nn.Module):
+    """Every tracking BatchNorm with copies of its running statistics."""
+    return [
+        (m, m.running_mean.clone(), m.running_var.clone(), m.num_batches_tracked.clone())
+        for m in model.modules()
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm) and m.track_running_stats
+    ]
+
+
+def _restore_batchnorm_stats(saved) -> None:
+    for m, mean, var, count in saved:
+        m.running_mean, m.running_var, m.num_batches_tracked = mean, var, count
+
+
 def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConfig):
     """step(state, images [B, H, W, 3] float32, targets, anchors [P, 4])
     -> (state, metrics): train-mode forward -> multibox_loss ->
     total_loss -> backward -> Adam update. Images, targets and anchors lie
     on the model's device. Metrics are 0-d device tensors: loss, loss_l,
     loss_c, loss_landm. The gradients stay in the parameters' `.grad`
-    until the next step."""
+    until the next step.
+
+    With `device_augment` the step is step(state, images_u8 [B, bh, bw, 3]
+    uint8, plan, targets, anchors): `data/device_augment.device_augment`
+    (bf16 resample, no gradient) makes the frames on the device first.
+
+    `remat` runs the forward in checkpointed segments (`RetinaFace.forward`:
+    each backbone block, the FPN, each SSH; non-reentrant
+    torch.utils.checkpoint under the same autocast): backward recomputes
+    one segment at a time instead of keeping every activation, so only the
+    segments' inputs live across the step. The JAX package wraps the whole
+    forward in one jax.checkpoint; one checkpoint in torch would rebuild
+    every activation before the backward walks them, and save no memory.
+    The recompute runs the train-mode forward again, which would update
+    the BatchNorm running statistics a second time; the step keeps the
+    statistics of the first forward (copied after it, put back after
+    backward), as jax.checkpoint updates them once.
+
+    `microbatches` > 1 (ghost BatchNorm, jabd_tpu/train.py:201-258): the
+    batch is split into that many chunks, each with its own forward, loss
+    (normalized by its own positives) and backward; the BatchNorm
+    statistics carry from chunk to chunk; the summed gradients are divided
+    by the count before one Adam update; metrics are the chunks' means.
+    With device augmentation each chunk augments its own slice."""
     check_supported(train_cfg)
     bf16 = model_cfg.compute_dtype == "bfloat16"
+    mb = max(train_cfg.microbatches, 1)  # <= 1: the whole batch, as in JAX
 
-    def step(state: TrainState, images: torch.Tensor, targets: losses.Targets, anchors: torch.Tensor):
-        model = state.model
-        model.train()
+    def chunk_backward(model, images, targets, anchors):
         x = images.permute(0, 3, 1, 2)
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-            out = model(x)
+            out = model(x, remat=train_cfg.remat)
+        saved = _batchnorm_stats(model) if train_cfg.remat else None
         parts = losses.multibox_loss(
             out,
             anchors,
@@ -185,13 +214,104 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
             matching_impl=train_cfg.matching_impl,
         )
         loss = losses.total_loss(parts, train_cfg.loc_weight)
+        loss.backward()  # adds into .grad
+        if saved is not None:
+            _restore_batchnorm_stats(saved)
+        return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+
+    def run(state: TrainState, make_images, batch: int, targets: losses.Targets, anchors: torch.Tensor):
+        if batch % mb:
+            raise ValueError(f"batch {batch} not divisible by microbatches={mb}")
+        model = state.model
+        model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        n = batch // mb
+        chunks = []
+        for i in range(mb):
+            part = slice(i * n, (i + 1) * n)
+            chunk_targets = losses.Targets(*(t[part] for t in targets))
+            chunks.append(chunk_backward(model, make_images(part), chunk_targets, anchors))
+        if mb == 1:
+            metrics = chunks[0]
+        else:
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(mb)
+            metrics = {k: torch.stack([c[k] for c in chunks]).mean() for k in chunks[0]}
         state.apply_gradients()
-        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
         return state, metrics
 
-    return step
+    if not train_cfg.device_augment:
+
+        def step(state: TrainState, images: torch.Tensor, targets: losses.Targets, anchors: torch.Tensor):
+            return run(state, lambda part: images[part], images.shape[0], targets, anchors)
+
+        return step
+
+    from jabd_tpu_torch.data.device_augment import device_augment
+
+    def aug_step(state: TrainState, images_u8: torch.Tensor, plan, targets: losses.Targets, anchors: torch.Tensor):
+        def make_images(part):
+            with torch.no_grad():
+                return device_augment(images_u8[part], type(plan)(*(t[part] for t in plan)))
+
+        return run(state, make_images, images_u8.shape[0], targets, anchors)
+
+    return aug_step
+
+
+def _to_device(x, device: torch.device, moved: list):
+    """Copy a batch's tensors (in tuples and NamedTuples, or None) to
+    `device`, non-blocking from pinned memory when it is a card; the copies
+    are appended to `moved`."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        if device.type == "cuda":
+            x = x.pin_memory()
+        moved.append(x.to(device, non_blocking=True))
+        return moved[-1]
+    if isinstance(x, tuple):
+        parts = (_to_device(v, device, moved) for v in x)
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    raise TypeError(f"cannot move {type(x).__name__} to a device")
+
+
+def prefetch_to_device(iterator, device, depth: int = 2):
+    """Keep `depth` batches in flight on `device`: each batch (tuples and
+    NamedTuples of CPU tensors, or None) is copied before the one ahead of
+    it is yielded. Port of jabd_tpu/parallel/mesh.py:132-153 for one device
+    (the reference DataLoader's pin_memory).
+
+    On a card the copies run from pinned host memory on a stream of their
+    own, so the copy of batch i + 1 overlaps step i on the current stream;
+    the current stream waits for a batch's copies only when it is yielded,
+    and the copied tensors are recorded on it for the caching allocator."""
+    device = torch.device(device)
+    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    queue = collections.deque()
+
+    def ready(entry):
+        batch, moved, done = entry
+        if done is not None:
+            compute = torch.cuda.current_stream(device)
+            compute.wait_event(done)
+            for t in moved:
+                t.record_stream(compute)
+        return batch
+
+    for batch in iterator:
+        moved = []
+        if copy_stream is None:
+            queue.append((_to_device(batch, device, moved), moved, None))
+        else:
+            with torch.cuda.stream(copy_stream):
+                batch = _to_device(batch, device, moved)
+                queue.append((batch, moved, copy_stream.record_event()))
+        if len(queue) >= depth:
+            yield ready(queue.popleft())
+    while queue:
+        yield ready(queue.popleft())
 
 
 def fit(
@@ -206,13 +326,18 @@ def fit(
 ) -> TrainState:
     """The two-phase loop (freeze -> unfreeze) of
     train_mobilenetV3_ecagai.py:553-615 on `device` (the card unless
-    given). Appends one row per epoch to `<log_dir>/metrics.csv`, resumes
-    from the latest checkpoint of `checkpoint_manager` (optimizer
-    included) and always saves the final state. Returns the TrainState."""
+    given). Batches come from `data/wider.train_loader` (host augmentation)
+    or, with `device_augment`, `data/device_augment.device_train_loader`
+    (uint8 sources and plans at `augment_bucket`), through
+    `prefetch_to_device`. Appends one row per epoch to
+    `<log_dir>/metrics.csv`, resumes from the latest checkpoint of
+    `checkpoint_manager` (optimizer included) and always saves the final
+    state. Returns the TrainState."""
+    from jabd_tpu_torch.data.device_augment import device_train_loader
     from jabd_tpu_torch.data.wider import train_loader
     from jabd_tpu_torch.utils.logging import LossHistory
 
-    step_fn = make_train_step(model_cfg, train_cfg)  # raises for unported options
+    step_fn = make_train_step(model_cfg, train_cfg)  # raises for fsdp
     dev = resolve_device(device)
     steps_per_epoch = max(len(dataset) // train_cfg.batch_size, 1)
     size = (train_cfg.image_size, train_cfg.image_size)
@@ -280,15 +405,29 @@ def fit(
             t0 = time.time()
             cur_lr = state.lr_at(state.count)  # the epoch's first update
             step_metrics = []  # device tensors: one host sync per epoch
-            for images, arrays in train_loader(
-                dataset,
-                train_cfg.batch_size,
-                max_targets=train_cfg.max_targets,
-                seed=train_cfg.seed + epoch,
-            ):
-                images = torch.from_numpy(images.astype(np.float32, copy=False)).to(dev)
-                targets = losses.Targets(*(torch.from_numpy(a).to(dev) for a in arrays))
-                state, metrics = step_fn(state, images, targets, anchors)
+            seed = train_cfg.seed + epoch
+            if train_cfg.device_augment:
+                batches = (
+                    (torch.from_numpy(images_u8), plan, *map(torch.from_numpy, arrays))
+                    for images_u8, plan, arrays in device_train_loader(
+                        dataset, train_cfg.batch_size, bucket_hw=train_cfg.augment_bucket,
+                        max_targets=train_cfg.max_targets, seed=seed,
+                    )
+                )
+            else:
+                batches = (
+                    (torch.from_numpy(images.astype(np.float32, copy=False)), None,
+                     *map(torch.from_numpy, arrays))
+                    for images, arrays in train_loader(
+                        dataset, train_cfg.batch_size, max_targets=train_cfg.max_targets, seed=seed,
+                    )
+                )
+            for images, plan, *arrays in prefetch_to_device(batches, dev, depth=2):
+                targets = losses.Targets(*arrays)
+                if plan is None:
+                    state, metrics = step_fn(state, images, targets, anchors)
+                else:
+                    state, metrics = step_fn(state, images, plan, targets, anchors)
                 step_metrics.append(metrics)
             nsteps = len(step_metrics)
             means = {

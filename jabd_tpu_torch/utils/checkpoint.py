@@ -6,13 +6,16 @@ and BatchNorm statistics), the optimizer's state dict (Adam moments) and
 the step and schedule counts of a `train.TrainState`; the oldest files
 beyond `max_to_keep` are deleted. Unlike the reference's per-epoch
 `torch.save(model.state_dict())`, a restore also resumes the optimizer.
+
+`partial_load` is the shape-filtered load of jabd_tpu/utils/checkpoint.py
+(reference train_mobilenetV3_ecagai.py:450-460).
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -57,3 +60,22 @@ class CheckpointManager:
         payload = torch.load(self._path(step), map_location=device, weights_only=True)
         state_template.load_state_dict(payload)
         return state_template
+
+
+def partial_load(
+    target: Mapping[str, torch.Tensor], source: Mapping[str, torch.Tensor]
+) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Shape-filtered partial load: every entry of the state dict `target`
+    whose name is in `source` with the same shape takes the source's value,
+    the rest keep the target's. Returns (state dict, count taken), for
+    `model.load_state_dict`."""
+    out = {}
+    n_loaded = 0
+    for key, value in target.items():
+        src = source.get(key)
+        if src is not None and tuple(src.shape) == tuple(value.shape):
+            out[key] = src
+            n_loaded += 1
+        else:
+            out[key] = value
+    return out, n_loaded

@@ -30,6 +30,7 @@ PORT_MODULES = [
     "jabd_tpu_torch._build",
     "jabd_tpu_torch.configs",
     "jabd_tpu_torch.data",
+    "jabd_tpu_torch.data.device_augment",
     "jabd_tpu_torch.data.wider",
     "jabd_tpu_torch.losses",
     "jabd_tpu_torch.models",
@@ -54,6 +55,7 @@ PORT_MODULES = [
     "jabd_tpu_torch.utils.checkpoint",
     "jabd_tpu_torch.utils.convert",
     "jabd_tpu_torch.utils.logging",
+    "jabd_tpu_torch.utils.np_ckpt",
 ]
 
 
@@ -69,14 +71,17 @@ def test_port_module_list_is_complete():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Run in a fresh interpreter: this test process already holds jax."""
+    """Run in a fresh interpreter: this test process already holds jax.
+    PIL, cv2, matplotlib and scipy are imported only where used, since the
+    card's machine lacks some of them."""
     code = textwrap.dedent(
         f"""
         import importlib, sys
         for name in {PORT_MODULES!r}:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "jabd_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "jabd_tpu",
+                                            "PIL", "cv2", "matplotlib", "scipy"))
         assert not bad, bad
         """
     )
@@ -236,3 +241,17 @@ def test_letterbox_geometry(image_hw):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
     x = np.full((2, 2, 3), 200.0, np.float32)
     np.testing.assert_array_equal(TI.preprocess_input_np(x), JI.preprocess_input_np(x))
+
+
+def test_compare_train_step_imports_neither_jax_nor_the_jax_package():
+    code = textwrap.dedent(
+        """
+        import sys
+        import compare_train_step
+        compare_train_step.run  # the turn a subprocess runs
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "jabd_tpu"))
+        assert not bad, bad
+        """
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=_repo_root())

@@ -428,12 +428,17 @@ def test_fit_resumes_at_the_freeze_boundary(tmp_path):
 
 
 def test_unported_train_options_raise():
+    """Only fsdp (the parallelism slice) raises; remat, microbatches and
+    device_augment build their steps, alone and combined."""
     cfg = TC.get_model_config("jabd_flagship")
-    for kw in ({"microbatches": 2}, {"remat": True}, {"device_augment": True}, {"fsdp": True}):
+    for kw in ({"fsdp": True}, {"fsdp": True, "remat": True}):
         with pytest.raises(NotImplementedError, match="slice"):
             TT.make_train_step(cfg, TC.TrainConfig(**kw))
         with pytest.raises(NotImplementedError):
             TT.fit(cfg, TC.TrainConfig(**kw), _Dataset(2), device="cpu")
+    for kw in ({"microbatches": 2}, {"remat": True}, {"device_augment": True},
+               {"microbatches": 2, "remat": True, "device_augment": True}):
+        assert callable(TT.make_train_step(cfg, TC.TrainConfig(**kw)))
 
 
 def test_train_config_is_a_faithful_copy():
