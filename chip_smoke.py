@@ -57,7 +57,25 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    through `prefetch_to_device` against copies on the compute stream, in
    turns; a profile of the device-augment step, and K2 against its plain
    version on the augmented batch's targets (bit-identical; time, bound).
-7. One JSON line of every kernel of the port: launches on the main paths,
+7. The rest of inference (`[wider]`), each path with every launch count
+   set to 0 and launching K1: (a) the trained golden fixture
+   (tests/fixtures/golden_e2e, retinaface_mnet025 at float32, 96x96): its
+   three PNGs, decoded by `read_png`, through `run_wider_val` from memory;
+   detection counts exact, boxes within 2e-2 px, scores within 1e-3 and the
+   evaluator's three APs (over .mat files written with scipy) within 5e-3
+   of golden.npz. (b) jabd_flagship bf16 at 1280x1280, confidence 0.02,
+   batch 32, over 64 seeded images at WIDER FACE's geometry
+   (`wider_in_memory`, as BGR; their faces the ground truth): the sweep in
+   its three modes (single scale, host pyramid, device pyramid), each with
+   img/s over the sweep, APs finite in [0, 1] and a profiled chunk (device
+   busy, host share); K1 against the plain keep masks on one sweep batch
+   (B 32, K 5000), its time, bound and mask scratch. (c) the device
+   letterbox (float32 and bfloat16) and the device pyramid (float32)
+   against the host recipes. (d) `detect_images` on mixed sizes, its
+   identity-size image against `detect_image` (within 2e-3 px) on the
+   golden model, and on the flagship; `nms_cuda.nms` against the plain
+   `nms` at N 5000 and 12,288 (identical), and its raise at N 12,289.
+8. One JSON line of every kernel of the port: launches on the main paths,
    error against the plain version, times and bound.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
@@ -68,9 +86,12 @@ from __future__ import annotations
 
 import collections
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -598,6 +619,55 @@ def train_phase(card, dev, preset):
     }
 
 
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit RGB, non-interlaced PNG as `cv2.imread` gives it (uint8
+    [H, W, 3], BGR), with zlib and numpy only: the card's machine has
+    neither cv2 nor PIL. Undoes the five scanline filters (PNG spec 9)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is a PNG")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos : pos + 4])
+        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, color, _, _, interlace = header
+    check((depth, color, interlace) == (8, 2, 0), f"{path}: 8-bit RGB, not interlaced")
+    bpp, stride = 3, 3 * w
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if ftype in (0, 2):  # None; Up
+            cur = (line + (prev if ftype == 2 else 0)) & 0xFF
+        else:  # Sub, Average, Paeth: each byte needs its decoded left neighbour
+            cur = np.zeros(stride, np.int32)
+            for x in range(stride):
+                a = cur[x - bpp] if x >= bpp else 0
+                b = prev[x]
+                c = prev[x - bpp] if x >= bpp else 0
+                if ftype == 1:
+                    pred = a
+                elif ftype == 3:
+                    pred = (a + b) // 2
+                else:
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[x] = (line[x] + pred) & 0xFF
+        out[y] = cur
+        prev = cur
+    return np.ascontiguousarray(out.reshape(h, w, 3)[:, :, ::-1])
+
+
 def smooth_image(rng, h: int, w: int) -> np.ndarray:
     """A uint8 [h, w, 3] image of smooth seeded content: noise on a grid
     16 times coarser, bilinearly upsampled, plus fine noise."""
@@ -1000,6 +1070,280 @@ def augment_phase(card, dev, preset):
     return {"launches": sum(launches.values()), "max_abs_err": err}
 
 
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "golden_e2e")
+# tests/test_golden_e2e.py's PredictConfig of the trained fixture.
+GOLDEN_PCFG = dict(confidence=0.5, nms_iou=0.3, input_shape=(96, 96), max_detections=32, pre_nms_topk=64)
+
+
+def write_gt_mats(root: str, events) -> str:
+    """wider_face_val.mat and the easy / medium / hard mats, in the
+    official nested cell layout, for events = {event: {stem: [N, 4] x y w
+    h}} (every face kept in every setting). scipy, imported here."""
+    from scipy.io import savemat
+
+    e = len(events)
+    event_list, file_list, box_list, keep_list = (np.empty((e, 1), object) for _ in range(4))
+    for i, (event, imgs) in enumerate(events.items()):
+        event_list[i, 0] = event
+        files, boxes, keeps = (np.empty((len(imgs), 1), object) for _ in range(3))
+        for j, (stem, gt) in enumerate(imgs.items()):
+            files[j, 0] = stem
+            boxes[j, 0] = np.asarray(gt, float).reshape(-1, 4)
+            keeps[j, 0] = np.arange(1, len(gt) + 1).reshape(-1, 1)
+        file_list[i, 0], box_list[i, 0], keep_list[i, 0] = files, boxes, keeps
+    os.makedirs(root, exist_ok=True)
+    savemat(os.path.join(root, "wider_face_val.mat"),
+            {"face_bbx_list": box_list, "event_list": event_list, "file_list": file_list})
+    for name in ("easy", "medium", "hard"):
+        savemat(os.path.join(root, f"wider_{name}_val.mat"), {"gt_list": keep_list})
+    return root
+
+
+def profiled(fn):
+    """(wall ms, device-busy ms, K1 device ms) of one fn() under
+    torch.profiler (CUDA kernels only); busy None when not measured."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not rows:
+        return wall, None, None
+    k1 = sum(e.self_device_time_total for e in rows if "nms" in e.key.lower()) / 1000
+    return wall, sum(e.self_device_time_total for e in rows) / 1000, k1
+
+
+def wider_phase(card, dev, preset, state):
+    """Drive the rest of inference (module docstring, phase 7). Returns
+    K1's launches on these paths and its largest error against the plain
+    version here."""
+    tmp = tempfile.mkdtemp(prefix="wider_")
+    try:
+        return _wider_paths(card, dev, preset, state, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _wider_paths(card, dev, preset, state, tmp):
+    import dataclasses
+
+    from jabd_tpu_torch import configs
+    from jabd_tpu_torch.eval.run_wider import run_wider_val
+    from jabd_tpu_torch.eval.wider_eval import evaluate_wider
+    from jabd_tpu_torch.models import build_model
+    from jabd_tpu_torch.ops import anchors as A
+    from jabd_tpu_torch.ops import image as I
+    from jabd_tpu_torch.ops import nms as N
+    from jabd_tpu_torch.ops import nms_cuda
+    from jabd_tpu_torch.predict import Predictor, map_txt_rows, select_candidates
+    from jabd_tpu_torch.utils.np_ckpt import load_variables_npz
+
+    counter = nms_cuda.nms_keep_sorted
+    launches, worst = {}, 0.0
+
+    def driven(name, fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = counter.launches
+        check(counter.launches > 0, f"{name} launched K1")
+        return out
+
+    # (a) The trained golden fixture through the sweep, from memory.
+    gcfg = dataclasses.replace(configs.get_model_config("retinaface_mnet025"), compute_dtype="float32")
+    gstate = load_variables_npz(os.path.join(GOLDEN_DIR, "ckpt_mnet025_96.npz"),
+                                build_model(gcfg, device="cpu").state_dict())
+    gpred = Predictor(gcfg, gstate, configs.PredictConfig(**GOLDEN_PCFG), device=dev)
+    golden = dict(np.load(os.path.join(GOLDEN_DIR, "golden.npz")))
+    stems = sorted(k[len("dets_"):] for k in golden if k.startswith("dets_"))
+    # Named .jpg, as the golden test's dump names them: the evaluator's
+    # txt reader strips only that extension.
+    source = {("0--Golden", s + ".jpg"): read_png(os.path.join(GOLDEN_DIR, "images", s + ".png")) for s in stems}
+    preds = driven("golden sweep", lambda: run_wider_val(gpred, source, batch_size=3, out_dir=os.path.join(tmp, "golden")))
+    box_err = score_err = 0.0
+    for s in stems:
+        got, want = preds["0--Golden"][s], map_txt_rows(golden["dets_" + s])
+        check(got.shape == want.shape, f"golden {s}: {len(got)} detections, golden {len(want)}")
+        box_err = max(box_err, float(np.abs(got[:, :4] - want[:, :4]).max()))
+        score_err = max(score_err, float(np.abs(got[:, 4] - want[:, 4]).max()))
+    gt = write_gt_mats(os.path.join(tmp, "golden_gt"), {"0--Golden": {s: golden["gt_" + s] for s in stems}})
+    aps = evaluate_wider(os.path.join(tmp, "golden"), gt, iou_thresh=0.4)
+    ap_err = float(np.abs(np.asarray([aps["easy"], aps["medium"], aps["hard"]]) - golden["aps"]).max())
+    print(f"[wider] (a) golden fixture through run_wider_val (retinaface_mnet025 f32, 96x96, in-memory PNGs): "
+          f"detections {[len(preds['0--Golden'][s]) for s in stems]} (golden "
+          f"{[len(golden['dets_' + s]) for s in stems]}), max box err {box_err:.3e} px, score err "
+          f"{score_err:.3e}; APs {[round(aps[k], 6) for k in ('easy', 'medium', 'hard')]} against "
+          f"{golden['aps'].tolist()}, max err {ap_err:.3e}")
+    check(box_err <= 2e-2 and score_err <= 1e-3, "golden detections within 2e-2 px and 1e-3")
+    check(ap_err <= 5e-3, "golden APs within 5e-3")
+
+    # (b) The flagship at full width over seeded images of WIDER FACE's
+    # geometry, in all three sweep modes.
+    pcfg = configs.PredictConfig(confidence=0.02)  # 1280x1280, top 5000, 750 dets
+    pred = Predictor(preset, state, pcfg, device=dev)
+    n_img, bsz = 64, 32
+    ds = wider_in_memory(n_img, 840, seed=7)
+    events = ("0--Parade", "1--Handshaking")
+    data, gts = {}, {e: {} for e in events}
+    for i, (img, anno) in enumerate(zip(ds.images, ds.annos)):
+        event = events[i * len(events) // n_img]
+        data[(event, f"{i}.jpg")] = np.ascontiguousarray(img[:, :, ::-1])  # RGB -> BGR, as cv2 decodes
+        gts[event][str(i)] = np.stack([anno[:, 0], anno[:, 1], anno[:, 2] - anno[:, 0], anno[:, 3] - anno[:, 1]], 1)
+    gt = write_gt_mats(os.path.join(tmp, "synthetic_gt"), gts)
+    print(f"[wider] (b) {n_img} seeded images {WIDER_WIDTH} px wide (heights "
+          f"{sorted({im.shape[0] for im in ds.images})}), {sum(len(a) for a in ds.annos)} faces; "
+          f"jabd_flagship bf16 at {pcfg.input_shape}, confidence {pcfg.confidence}, batch {bsz}")
+    run_wider_val(pred, dict(list(data.items())[:bsz]), batch_size=bsz)  # warm-up: cuDNN, allocator
+    scales = (0.75, 1.0, 1.25)  # run_wider_val's pyramid
+    modes = {"single": {}, "multiscale host": {"multiscale": True, "scales": scales},
+             "multiscale device": {"multiscale": True, "scales": scales, "pyramid": "device"}}
+    first_chunk = dict(list(data.items())[:bsz])
+    for mode, kw in modes.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds = driven(f"sweep {mode}", lambda: run_wider_val(pred, data, batch_size=bsz, **kw))
+        wall_s = time.perf_counter() - t0
+        aps = evaluate_wider(preds, gt, iou_thresh=0.4)
+        n_dets = sum(len(r) for ev in preds.values() for r in ev.values())
+        check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in aps.values()), f"{mode}: APs finite in [0, 1]")
+        check(sum(len(ev) for ev in preds.values()) == n_img, f"{mode}: every image answered")
+        wall, busy, k1 = profiled(lambda: run_wider_val(pred, first_chunk, batch_size=bsz, **kw))
+        share = "not measured" if busy is None else f"{1 - busy / wall:.3f}"
+        per_batch = None if busy is None else busy / (len(scales) if kw else 1)  # a batch per scale
+        print(f"[wider] (b) sweep {mode}: {n_img / wall_s:.2f} img/s over the sweep ({wall_s:.2f} s, host clock, "
+              f"loading included), {launches[f'sweep {mode}']} K1 launches, {n_dets} detections, APs "
+              f"{[round(aps[k], 6) for k in ('easy', 'medium', 'hard')]}; one chunk of {bsz} under the profiler: "
+              f"wall {wall:.1f} ms, device busy {fmt_ms(busy)} ({fmt_ms(per_batch)} per batch of {bsz}; K1 "
+              f"{fmt_ms(k1)}), host share {share} [{card}]")
+
+    # The sweep's host stages on one chunk (host clock, 8 threads as the
+    # sweep runs them): per-image preprocessing of each mode, the float32
+    # batch's stacking and copy to the card, and the pyramid's merge
+    # (`nms_numpy` over three scales' worth of rows per image).
+    th, tw = pcfg.input_shape
+    chunk = list(first_chunk.values())
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            out = list(pool.map(fn, chunk))
+        return (time.perf_counter() - t0) * 1000, out
+
+    lb_ms, frames_list = host_ms(lambda im: I.serving_front_end(im, (tw, th)))
+    pyr_ms, _ = host_ms(lambda im: [I.serving_front_end(I.cubic_resize_np(im, (max(int(im.shape[1] * s), 32),
+                                                                               max(int(im.shape[0] * s), 32))),
+                                                        (tw, th)) for s in scales])
+    plan_ms, _ = host_ms(lambda im: [I.plan_pyramid(im.shape[:2], s, (th, tw)) for s in scales])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = np.stack(frames_list)
+    torch.from_numpy(frames).to(dev)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1000
+    single = pred.detect_images(chunk[:4])
+    merged = [np.concatenate([d, d * np.float32(1.01), d * np.float32(0.99)]) for d in single]
+    t0 = time.perf_counter()
+    for m in merged:
+        N.nms_numpy(m[:, :4], m[:, 4], iou_threshold=pcfg.nms_iou)
+    merge_ms = (time.perf_counter() - t0) * 1000 / len(merged) * len(chunk)
+    print(f"[wider] (b) host stages for a chunk of {len(chunk)}, 8 threads: letterbox + means {lb_ms:.1f} ms, "
+          f"host pyramid (3 cubic pre-scales + letterboxes) {pyr_ms:.1f} ms, device-pyramid plans {plan_ms:.1f} "
+          f"ms; stack + copy of the {frames.nbytes / 1e6:.0f} MB float32 batch {copy_ms:.1f} ms; pyramid merge "
+          f"(nms_numpy on {len(merged[0])} rows an image) {merge_ms:.1f} ms, one thread [{card}]")
+
+    # K1 against the plain keep masks on one sweep batch (B 32, K 5000).
+    anchors = torch.from_numpy(A.generate_anchors(preset.anchors, (th, tw)).copy()).to(dev)
+    with torch.inference_mode():
+        heads = pred.model(torch.from_numpy(frames).to(dev).permute(0, 3, 1, 2))
+        kb, _, kv, _ = select_candidates(*heads, anchors, pcfg, preset.anchors.variance)
+    kb, kv = kb.contiguous(), kv.contiguous()
+    thr, kind = pcfg.nms_iou, pcfg.nms_kind
+    keep_k = nms_cuda.nms_keep_sorted(kb, kv, thr, kind)
+    keep_p = N.nms_keep_sorted(kb, kv, thr, kind)
+    torch.cuda.synchronize()
+    err = float((keep_k.float() - keep_p.float()).abs().max())
+    worst = max(worst, err)
+    check(torch.equal(keep_k, keep_p), "K1 == plain on a sweep batch")
+    b, k = kv.shape
+    nb = -(-k // 64)
+    ms = cuda_ms(lambda: nms_cuda.nms_keep_sorted(kb, kv, thr, kind), iters=20)
+    dev_ms = device_ms(lambda: nms_cuda.nms_keep_sorted(kb, kv, thr, kind))
+    plain_ms = cuda_ms(lambda: N.nms_keep_sorted(kb, kv, thr, kind), iters=1, warmup=0)
+    bytes_ms = (b * k * (16 + 1) + b * k) / HBM_BYTES_PER_S * 1e3
+    ops_ms = nms_ops(kv, keep_p, kind) / F32_FLOPS * 1e3
+    print(f"[wider] (b) K1 on a sweep batch B={b} K={k}: n_valid per image {kv.sum(1).tolist()}, kept "
+          f"{keep_p.sum(1).tolist()}, mismatches {int((keep_k != keep_p).sum())}; mask scratch "
+          f"{b * nb * nb * 64 * 8 / 1e6:.1f} MB; kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain "
+          f"{plain_ms:.3f} ms, bytes bound {bytes_ms:.6f} ms, operations bound {ops_ms:.6f} ms [{card}]")
+
+    # (c) Frames: device letterbox and pyramid against the host recipes.
+    imgs = list(first_chunk.values())[:8]
+    bh = -(-max(im.shape[0] for im in imgs) // 128) * 128
+    bw = -(-max(im.shape[1] for im in imgs) // 128) * 128
+    padded, parts = zip(*(I.plan_letterbox(im, (th, tw), (bh, bw)) for im in imgs))
+    src = torch.from_numpy(np.stack(padded)).to(dev)
+    plan = [torch.from_numpy(np.stack(p)).to(dev) for p in zip(*parts)]
+    host = torch.from_numpy(np.stack([I.serving_front_end(im, (tw, th)) for im in imgs]))
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        with torch.inference_mode():
+            got = I.letterbox_batch_device(src, *plan, resample_dtype=dt).cpu()
+        e = (got - host).abs()
+        mean, share = float(e.flatten(1).mean(1).max()), float((e.amax(-1) > 4).flatten(1).float().mean(1).max())
+        print(f"[wider] (c) letterbox_batch_device {name} vs host letterbox, {len(imgs)} images at bucket "
+              f"{(bh, bw)}: max {float(e.max()):.3f}, worst image mean {mean:.4f}, share over 4 {share:.5f}")
+        check(mean <= 0.5 and share <= 0.005, f"device letterbox {name} within the JAX test's bounds")
+    worst_pyr = 0.0
+    for scale in (0.75, 1.0, 1.25):
+        plans = [I.plan_pyramid(im.shape[:2], scale, (th, tw)) for im in imgs[:4]]
+        srcp = torch.from_numpy(np.stack([I.pad_to_bucket(im, (bh, bw)) for im in imgs[:4]])).to(dev)
+        parts = [torch.from_numpy(np.stack([p[0][i] for p in plans])).to(dev) for i in range(6)]
+        with torch.inference_mode():
+            got = I.pyramid_batch_device(srcp, *parts).cpu()
+        for i, (im, (_, (sh, sw))) in enumerate(zip(imgs[:4], plans)):
+            want = I.preprocess_input_np(I.letterbox_np(I.cubic_resize_np(im, (sw, sh)), (tw, th)))
+            worst_pyr = max(worst_pyr, float((got[i] - torch.from_numpy(want)).abs().max()))
+    print(f"[wider] (c) pyramid_batch_device f32 (TF32 off) vs the host two-stage recipe, 4 images x 3 scales: "
+          f"max {worst_pyr:.3e}")
+    check(worst_pyr <= 0.05, "device pyramid within 0.05 of the host recipe")
+
+    # (d) detect_images, and the nms twin of nms_pallas.
+    rng = np.random.default_rng(11)
+    gimg = read_png(os.path.join(GOLDEN_DIR, "images", stems[0] + ".png"))
+    ident = np.ascontiguousarray(gimg[:96, :96])  # the target's own size: a copy, no resampling
+    mixed = [ident, read_png(os.path.join(GOLDEN_DIR, "images", stems[1] + ".png")),
+             rng.integers(0, 256, (70, 150, 3), dtype=np.uint8), imgs[0]]
+    outs = driven("detect_images golden", lambda: gpred.detect_images(mixed))
+    single = gpred.detect_image(ident)
+    check(outs[0].shape == single.shape, "detect_images identity image: as many rows as detect_image")
+    ident_err = float(np.abs(outs[0] - single).max()) if len(single) else 0.0
+    check(ident_err <= 2e-3, "detect_images identity image within 2e-3 px of detect_image")
+    flag = driven("detect_images flagship", lambda: pred.detect_images(imgs[:3] + [imgs[3][:700, :500]]))
+    check(all(np.isfinite(d).all() and d.shape[1] == 15 for d in flag), "flagship detect_images dets finite")
+    print(f"[wider] (d) detect_images: golden fixture rows {[len(d) for d in outs]}, identity image vs "
+          f"detect_image max err {ident_err:.3e} px; flagship bf16 rows {[len(d) for d in flag]}")
+    max_k = nms_cuda._library().jabd_nms_max_k()
+    for n in (5000, max_k):
+        boxes = torch.from_numpy(np.clip(_random_boxes(rng, n), 0, 1)).to(dev)
+        boxes[: n // 10] = boxes[0]
+        scores = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev)
+        scores[::3] = 0.5  # ties: the stable order decides
+        valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+        idx, ok = driven(f"nms N={n}", lambda: nms_cuda.nms(boxes, scores, 0.3, 750, valid))
+        pidx, pok = N.nms(boxes, scores, 0.3, 750, valid)
+        torch.cuda.synchronize()
+        check(torch.equal(idx, pidx) and torch.equal(ok, pok), f"nms_cuda.nms == plain nms at N {n}")
+        print(f"[wider] (d) nms_cuda.nms N={n}: {int(ok.sum())} kept, identical to the plain nms")
+    try:
+        nms_cuda.nms(torch.zeros((max_k + 1, 4), device=dev), torch.zeros(max_k + 1, device=dev))
+        check(False, f"nms_cuda.nms raises at N {max_k + 1}")
+    except ValueError as e:
+        print(f"[wider] (d) nms_cuda.nms N={max_k + 1} raises: {e}")
+    print(f"[wider] K1 launches per path {launches}")
+    return {"launches": sum(launches.values()), "max_abs_err": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1219,14 +1563,17 @@ def main() -> int:
     k2["launches"] += k2_aug["launches"]
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_aug["max_abs_err"])
 
-    # -- phase 7: the kernels line -------------------------------------------
+    # -- phase 7: the rest of inference --------------------------------------
+    k1_wider = wider_phase(card, dev, preset, state)
+
+    # -- phase 8: the kernels line -------------------------------------------
     kernels = [{
         "name": "nms_keep_sorted",
         "route": "cuda",
         "source": "jabd_tpu_torch/csrc/nms.cu",
         "replaces": "jabd_tpu/ops/nms_pallas.py:42",
-        "launches": main_launches,
-        "max_abs_err": worst,
+        "launches": main_launches + k1_wider["launches"],
+        "max_abs_err": max(worst, k1_wider["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),

@@ -1,5 +1,6 @@
-"""MobileNetV3-Large backbone, NCHW. Port of `MNV3Block`, the block tables
-and `MobileNetV3Backbone` of `jabd_tpu/models/mobilenet.py`."""
+"""MobileNetV3-Large and MobileNetV1-0.25 backbones, NCHW. Port of
+`MNV3Block`, the block tables, `MobileNetV3Backbone` and
+`MobileNetV1Backbone` of `jabd_tpu/models/mobilenet.py`."""
 
 from __future__ import annotations
 
@@ -146,5 +147,45 @@ class MobileNetV3Backbone(nn.Module):
         for names in self.stage_names:
             for name in names:
                 h = segment(getattr(self, name), h, remat)
+            taps.append(h)
+        return taps
+
+
+class MobileNetV1Backbone(nn.Module):
+    """MobileNetV1 x0.25: a 3x3 s2 stem to 8 channels, then 13 depthwise-
+    separable blocks in three stages (block i: depthwise 3x3 ConvBN
+    `dw{i}_depth`, pointwise 1x1 ConvBN `dw{i}_point`), taps at 64 / 128 /
+    256 channels (strides 8 / 16 / 32), LeakyReLU 0.1 everywhere. Port of
+    `MobileNetV1Backbone` of jabd_tpu/models/mobilenet.py."""
+
+    # (out channels, stride) per block, by stage.
+    STAGES = (
+        ((16, 1), (32, 2), (32, 1), (64, 2), (64, 1)),
+        ((128, 2),) + ((128, 1),) * 5,
+        ((256, 2), (256, 1)),
+    )
+
+    def __init__(self):
+        super().__init__()
+        self.stem = ConvBN(3, 8, 3, stride=2, act=0.1)
+        cin, i = 8, 0
+        for plan in self.STAGES:
+            for cout, stride in plan:
+                self.add_module(f"dw{i}_depth", ConvBN(cin, cin, 3, stride=stride, act=0.1, groups=cin))
+                self.add_module(f"dw{i}_point", ConvBN(cin, cout, 1, act=0.1))
+                cin, i = cout, i + 1
+
+    def _block(self, i: int):
+        depth, point = getattr(self, f"dw{i}_depth"), getattr(self, f"dw{i}_point")
+        return lambda t: point(depth(t))
+
+    def forward(self, x, remat: bool = False):
+        """remat checkpoints the stem and each block as a segment."""
+        h = segment(self.stem, x, remat)
+        taps, i = [], 0
+        for plan in self.STAGES:
+            for _ in plan:
+                h = segment(self._block(i), h, remat)
+                i += 1
             taps.append(h)
         return taps

@@ -23,13 +23,22 @@ import torch.nn as nn
 from jabd_tpu_torch import resolve_device
 from jabd_tpu_torch.configs import ModelConfig
 from jabd_tpu_torch.models import layers as L
-from jabd_tpu_torch.models.mobilenet import MNV3_LARGE_3STAGE, MobileNetV3Backbone
+from jabd_tpu_torch.models.mobilenet import MNV3_LARGE_3STAGE, MobileNetV1Backbone, MobileNetV3Backbone
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+BACKBONES = ("mobilenet_v3_large", "mobilenet_v1_025")
+
+
 def _eca_kind(kind: str) -> str:
     return "stdv" if kind == "eca_stdv" else "avg"
+
+
+def _make_backbone(cfg: ModelConfig) -> nn.Module:
+    if cfg.backbone == "mobilenet_v1_025":
+        return MobileNetV1Backbone()
+    return MobileNetV3Backbone(MNV3_LARGE_3STAGE, block_attention=cfg.backbone_block_attention)
 
 
 class RetinaFace(nn.Module):
@@ -39,9 +48,7 @@ class RetinaFace(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.mode = mode
-        self.backbone = MobileNetV3Backbone(
-            MNV3_LARGE_3STAGE, block_attention=cfg.backbone_block_attention
-        )
+        self.backbone = _make_backbone(cfg)
         if cfg.tap_attention:
             for i, c in enumerate(cfg.in_channels):
                 self.add_module(
@@ -100,7 +107,7 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a configuration this port does not
     build yet; it never substitutes another model."""
     unported = []
-    if cfg.backbone != "mobilenet_v3_large":
+    if cfg.backbone not in BACKBONES:
         unported.append(f"backbone {cfg.backbone!r}")
     if cfg.num_levels != 3:
         unported.append(f"{cfg.num_levels}-level pyramid")

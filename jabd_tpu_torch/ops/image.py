@@ -7,7 +7,10 @@ Port of `jabd_tpu/ops/image.py` (`preprocess_input_np`,
 augmentation calls, in numpy; and the training augmentation's HSV jitter
 in cv2's float HSV space (`hsv_jitter`), the one definition that the host
 (`data/wider.augment_sample`) and the card (`data/device_augment`) both
-run. The JAX package letterboxes with
+run; the batched device letterbox (`plan_letterbox`,
+`letterbox_batch_device`), the image pyramid (`plan_pyramid`,
+`pyramid_batch_device`) and the pyramid's host pre-scale
+(`cubic_resize_np`, cv2's float32 INTER_CUBIC). The JAX package letterboxes with
 `cv2.resize`; cv2 is not a dependency of the port, so the resize here is
 torch bilinear with half-pixel centres and clamped edge taps, which is
 cv2's INTER_LINEAR (and, at an exact 2x downscale, equals the INTER_AREA
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from jabd_tpu_torch.ops import resize as R
 from jabd_tpu_torch.ops.resize import _pil_bicubic_filter
 
 MEANS = (104.0, 117.0, 123.0)
@@ -140,6 +144,142 @@ def serving_front_end(
     image's own dtype, then float and mean subtraction."""
     x = letterbox_np(image, size_wh) if letterbox else resize_np(image, size_wh)
     return preprocess_input_np(x.astype(np.float32))
+
+
+def cubic_resize_np(image: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
+    """cv2.resize(image.astype(float32), size_wh, interpolation=INTER_CUBIC)
+    without cv2: half-pixel centres, A = -0.75, border-replicate taps, no
+    antialias and no clip (cubic overshoot past [0, 255] stays). Two
+    float32 matmuls with the dense matrices of `resize.cv2_cubic_taps`."""
+    w, h = size_wh
+    ih, iw = image.shape[:2]
+
+    def dense(in_size, out_size):
+        xmin, wts = R.cv2_cubic_taps(in_size, out_size)
+        m = np.zeros((out_size, in_size), np.float32)
+        rows = np.repeat(np.arange(out_size), 4)
+        cols = np.minimum(xmin[:, None] + np.arange(4), in_size - 1).ravel()
+        np.add.at(m, (rows, cols), wts.ravel())
+        return torch.from_numpy(m)
+
+    x = torch.from_numpy(np.ascontiguousarray(image, dtype=np.float32))
+    c = x.shape[2]
+    y = dense(ih, h) @ x.reshape(ih, iw * c)  # [h, iw * c]
+    y = dense(iw, w) @ y.view(h, iw, c).transpose(0, 1).reshape(iw, h * c)
+    return y.view(w, h, c).transpose(0, 1).contiguous().numpy()
+
+
+def plan_letterbox(
+    image_u8: np.ndarray,  # [ih, iw, 3] uint8
+    target_hw: Tuple[int, int],
+    bucket_hw: Tuple[int, int],
+    letterbox: bool = True,
+):
+    """One image's letterbox as per-sample resample matrices (cv2
+    INTER_LINEAR semantics, centred paste, fill 84) against a uint8
+    source bucket, so one batched call letterboxes images of any sizes.
+    A source larger than the bucket is first shrunk to fit (`resize_np`,
+    within 1 grey level of the JAX package's cv2 INTER_LINEAR).
+
+    Returns (padded_u8 [bh, bw, 3], (mv [th, bh], mh [tw, bw], inside_v
+    [th], inside_h [tw]))."""
+    ih, iw = image_u8.shape[:2]
+    th, tw = target_hw
+    bh, bw = bucket_hw
+    if ih > bh or iw > bw:
+        s = min(bh / ih, bw / iw)
+        image_u8 = resize_np(image_u8, (max(int(iw * s), 1), max(int(ih * s), 1))).astype(np.uint8)
+        ih, iw = image_u8.shape[:2]
+    if letterbox:
+        _, nh, nw, top, left = letterbox_params((ih, iw), (th, tw))
+    else:  # a plain, aspect-breaking resize to the target
+        nh, nw, top, left = th, tw, 0, 0
+    padded = pad_to_bucket(image_u8, bucket_hw)
+    mv, inside_v = R.paste_resize_matrix(ih, nh, top, th, bh, taps=R.cv2_bilinear_taps)
+    mh, inside_h = R.paste_resize_matrix(iw, nw, left, tw, bw, taps=R.cv2_bilinear_taps)
+    return padded, (mv, mh, inside_v, inside_h)
+
+
+def letterbox_batch_device(
+    images_u8: torch.Tensor,  # [B, bh, bw, 3] uint8 (bucketed sources)
+    mv: torch.Tensor,  # [B, th, bh]
+    mh: torch.Tensor,  # [B, tw, bw]
+    inside_v: torch.Tensor,  # [B, th]
+    inside_h: torch.Tensor,  # [B, tw]
+    resample_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Bucketed uint8 sources + plans -> mean-subtracted float32 [B, th,
+    tw, 3] frames: what letterbox_np + preprocess_input_np give, up to
+    cv2's uint8 fixed-point rounding (and bfloat16's, by default)."""
+    y = R.resample_canvas(
+        images_u8, mv, mh, inside_v, inside_h, fill=LETTERBOX_FILL, resample_dtype=resample_dtype
+    )
+    return y - torch.tensor(MEANS, dtype=torch.float32, device=y.device)
+
+
+# Composite cubic-prescale + bilinear-letterbox windows span at most
+# 4 + ceil(1/scale) source taps; 16 covers pyramid scales down to ~0.09.
+PYRAMID_TAPS_K = 16
+
+
+def pad_to_bucket(image_u8: np.ndarray, bucket_hw: Tuple[int, int]) -> np.ndarray:
+    """A [H, W, 3] uint8 image in the top-left corner of a [bh, bw, 3]
+    source bucket; the rest is never read (plan weights are zero there)."""
+    bh, bw = bucket_hw
+    padded = np.empty((bh, bw, 3), np.uint8)
+    ih, iw = image_u8.shape[:2]
+    padded[:ih, :iw] = image_u8
+    return padded
+
+
+def plan_pyramid(
+    image_hw: Tuple[int, int],
+    scale: float,
+    target_hw: Tuple[int, int],
+    letterbox: bool = True,
+    k_max: int = PYRAMID_TAPS_K,
+):
+    """One (image, pyramid scale) pair's recipe, float32 cv2 INTER_CUBIC
+    pre-scale then the cv2 INTER_LINEAR letterbox onto the grey canvas, as
+    ONE taps-form plan over the raw uint8 source: every scale reuses the
+    same source upload.
+
+    Returns ((xv, wv, inside_v, xh, wh, inside_h), (sh, sw)); (sh, sw) is
+    the pre-scaled size the host recipe would have made (for the box
+    undo)."""
+    ih, iw = image_hw
+    th, tw = target_hw
+    sw = max(int(iw * scale), 32)
+    sh = max(int(ih * scale), 32)
+    if letterbox:
+        _, nh, nw, top, left = letterbox_params((sh, sw), (th, tw))
+    else:
+        nh, nw, top, left = th, tw, 0, 0
+    xv, wv, iv = R.compose_scale_letterbox_taps(ih, sh, nh, top, th, k_max)
+    xh, wh, ihm = R.compose_scale_letterbox_taps(iw, sw, nw, left, tw, k_max)
+    return (xv, wv, iv, xh, wh, ihm), (sh, sw)
+
+
+def pyramid_batch_device(
+    images_u8: torch.Tensor,  # [B, bh, bw, 3] uint8 (bucketed sources)
+    xv: torch.Tensor,  # [B, th] integer
+    wv: torch.Tensor,  # [B, th, K]
+    inside_v: torch.Tensor,  # [B, th]
+    xh: torch.Tensor,  # [B, tw] integer
+    wh: torch.Tensor,  # [B, tw, K]
+    inside_h: torch.Tensor,  # [B, tw]
+) -> torch.Tensor:
+    """Bucketed uint8 sources + composite pyramid plans -> mean-subtracted
+    float32 [B, th, tw, 3] frames. All float32 with no clamp or rounding
+    between the passes, as the host recipe it replaces (cv2 on float32,
+    where cubic overshoot past [0, 255] is legitimate); full float32 only
+    with TF32 off."""
+    bh, bw = images_u8.shape[1], images_u8.shape[2]
+    mv = R.expand_taps(xv, wv, bh, torch.float32)
+    mh = R.expand_taps(xh, wh, bw, torch.float32)
+    y = R.separable_resample(images_u8, mv, mh, torch.float32, clip_between=False)
+    y = R.paste_fill(y, inside_v, inside_h, LETTERBOX_FILL)
+    return y - torch.tensor(MEANS, dtype=torch.float32, device=y.device)
 
 
 def correct_boxes_scale_offset(

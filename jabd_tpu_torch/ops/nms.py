@@ -10,10 +10,17 @@ This is a Python loop over the valid count, batched over images, with
 the operation order of the kernel (`csrc/nms.cu`) so the keep masks agree
 bit for bit. The CPU tests and `chip_smoke.py` call it; the serving path
 reaches it only for tensors that lie on the CPU (`nms_cuda`).
+
+The rest of the JAX module's family: `nms` (sort, keep mask, compaction
+to indices; `nms_cuda.nms` runs it with the kernel), `soft_nms`,
+`nms_numpy` (the host's greedy NMS in float64) and `topk_candidates`.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Optional, Tuple
+
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -93,3 +100,120 @@ def compact_keep(keep: torch.Tensor, rows: torch.Tensor, max_out: int):
     n_out = in_range.sum(dim=1, keepdim=True)
     out_valid = torch.arange(max_out, device=rows.device)[None] < n_out
     return out[:, :max_out], out_valid
+
+
+def nms(
+    boxes: torch.Tensor,  # [N, 4] corner form
+    scores: torch.Tensor,  # [N]
+    iou_threshold: float = 0.45,
+    max_out: int = 750,
+    valid: Optional[torch.Tensor] = None,
+    kind: str = "iou",
+    beta1: float = 1.0,
+    keep_fn: Callable = nms_keep_sorted,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS with a fixed output size: (indices [max_out] into the
+    input, in descending score order, valid [max_out]); empty slots point
+    at index 0. The order is a stable sort of the masked scores (the lower
+    index first among ties), as `jnp.argsort(-masked)`. `keep_fn` computes
+    the keep mask of the sorted boxes as [1, N] (`nms_cuda.nms` passes the
+    kernel's wrapper)."""
+    check_kind(kind)
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
+    masked = torch.where(valid, scores, torch.full((), NEG_INF, dtype=scores.dtype, device=scores.device))
+    order = torch.sort(-masked, stable=True).indices
+    sboxes = boxes.to(torch.float32)[order][None].contiguous()
+    keep = keep_fn(sboxes, valid[order][None].contiguous(), iou_threshold, kind, beta1)
+    idx, out_valid = compact_keep(keep, order[None, :, None], max_out)
+    return idx[0, :, 0], out_valid[0]
+
+
+def soft_nms(
+    boxes: torch.Tensor,  # [N, 4] corner form
+    scores: torch.Tensor,  # [N]
+    sigma: float = 0.5,
+    score_threshold: float = 0.001,
+    max_out: int = 750,
+    valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gaussian soft-NMS: each step selects the highest current score (the
+    first on ties), removes it from the pool and decays every score by
+    exp(-iou^2 / sigma); once the selected score falls below
+    `score_threshold` the pool is poisoned, so no later step selects.
+    Returns (indices [max_out], rescored [max_out], valid [max_out]);
+    invalid slots have score 0."""
+    n = boxes.shape[0]
+    dev = boxes.device
+    boxes = boxes.to(torch.float32)
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    s = torch.where(valid, scores.to(torch.float32), neg)
+    areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    sel_idx = torch.zeros((max_out,), dtype=torch.int64, device=dev)
+    sel_score = torch.full((max_out,), NEG_INF, dtype=torch.float32, device=dev)
+    for i in range(min(max_out, n)):
+        j = torch.argmax(s)
+        sj = s[j]
+        sel_idx[i] = j
+        sel_score[i] = sj
+        metric = _metric(boxes[j][None], boxes[None], areas[None], "iou", 1.0)[0]
+        s = s * torch.exp(-(metric**2) / sigma)
+        s[j] = NEG_INF
+        s = torch.where(sj >= score_threshold, s, neg)
+    out_valid = sel_score >= score_threshold
+    return sel_idx, torch.where(out_valid, sel_score, torch.zeros_like(sel_score)), out_valid
+
+
+def nms_numpy(boxes, scores, iou_threshold: float = 0.45, kind: str = "iou", beta1: float = 1.0):
+    """Exact greedy NMS on the host, in float64 numpy, for small candidate
+    sets whose count varies (the merge of an image pyramid's detections).
+    Returns the kept indices in score order (a stable descending sort)."""
+    boxes = np.asarray(boxes, dtype=np.float64)
+    scores = np.asarray(scores)
+    order = np.argsort(-scores, kind="stable")
+    suppressed = np.zeros(len(boxes), bool)
+    areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    keep = []
+    for i in order:
+        if suppressed[i]:
+            continue
+        keep.append(int(i))
+        xx1 = np.maximum(boxes[:, 0], boxes[i, 0])
+        yy1 = np.maximum(boxes[:, 1], boxes[i, 1])
+        xx2 = np.minimum(boxes[:, 2], boxes[i, 2])
+        yy2 = np.minimum(boxes[:, 3], boxes[i, 3])
+        inter = np.clip(xx2 - xx1, 0, None) * np.clip(yy2 - yy1, 0, None)
+        union = areas + areas[i] - inter
+        metric = inter / np.where(union > 0, union, 1)
+        if kind == "diou":
+            cx = (boxes[:, 0] + boxes[:, 2]) / 2
+            cy = (boxes[:, 1] + boxes[:, 3]) / 2
+            d = (cx - cx[i]) ** 2 + (cy - cy[i]) ** 2
+            ex1 = np.minimum(boxes[:, 0], boxes[i, 0])
+            ey1 = np.minimum(boxes[:, 1], boxes[i, 1])
+            ex2 = np.maximum(boxes[:, 2], boxes[i, 2])
+            ey2 = np.maximum(boxes[:, 3], boxes[i, 3])
+            c = (ex2 - ex1) ** 2 + (ey2 - ey1) ** 2
+            metric = metric - (d / np.where(c > 0, c, 1)) ** beta1
+        sup = metric > iou_threshold
+        sup[i] = False
+        suppressed |= sup
+    return np.asarray(keep, dtype=np.int64)
+
+
+def topk_candidates(
+    boxes: torch.Tensor,  # [N, 4]
+    scores: torch.Tensor,  # [N]
+    k: int,
+    score_threshold: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The k best scores at or above `score_threshold` (the lower index
+    first among ties, as `jax.lax.top_k`): (boxes [k, 4], scores [k],
+    valid [k])."""
+    neg = torch.full((), NEG_INF, dtype=scores.dtype, device=scores.device)
+    masked = torch.where(scores >= score_threshold, scores, neg)
+    top, idx = torch.sort(masked, descending=True, stable=True)
+    top, idx = top[:k], idx[:k]
+    return boxes[idx], top, top > NEG_INF / 2

@@ -2,7 +2,8 @@
 the card, the plain version (`ops/nms.py`) for tensors on the CPU.
 
 Replaces `nms_keep_sorted_pallas_batched` (jabd_tpu/ops/nms_pallas.py),
-the serving path's one TPU kernel. One call launches two kernels on the
+the serving path's one TPU kernel, and through `nms` its twin `nms_pallas`
+(one image, unsorted scores). One call launches two kernels on the
 current stream: a suppression bitmask over 64x64 tiles of candidate pairs
 (the upper triangle, rows below n_valid), then a block-serial scan per
 image that applies the greedy rule 64 boxes at a time. Keep masks equal
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import Optional, Tuple
 
 import torch
 
@@ -79,7 +81,10 @@ def nms_keep_sorted(
         return keep
     lib = _library()
     if k > lib.jabd_nms_max_k():
-        raise ValueError(f"K = {k} exceeds the kernel's {lib.jabd_nms_max_k()}")
+        raise ValueError(
+            f"NMS of {k} boxes on the card: the kernel takes at most {lib.jabd_nms_max_k()}; "
+            "cut the candidates first (ops/nms.py::topk_candidates)"
+        )
     nb = -(-k // 64)
     mask = torch.empty((bsz, nb, nb, 64), dtype=torch.int64, device=boxes.device)
     with torch.cuda.device(boxes.device):
@@ -97,3 +102,23 @@ def nms_keep_sorted(
 
 
 nms_keep_sorted.launches = 0
+
+
+def nms(
+    boxes: torch.Tensor,  # [N, 4]
+    scores: torch.Tensor,  # [N]
+    iou_threshold: float = 0.45,
+    max_out: int = 750,
+    valid: Optional[torch.Tensor] = None,
+    kind: str = "iou",
+    beta1: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Twin of `nms_pallas` (jabd_tpu/ops/nms_pallas.py): a stable sort of
+    the masked scores, the keep mask of the sorted boxes as [1, N] through
+    `nms_keep_sorted` (the kernel on the card, the plain loop on the CPU),
+    then the compaction to ([max_out] indices into the input, valid).
+
+    On the card N may be at most `jabd_nms_max_k()` (12,288); a larger N
+    raises, where the JAX twin has no cap. It never falls back to the
+    plain loop."""
+    return N.nms(boxes, scores, iou_threshold, max_out, valid, kind, beta1, keep_fn=nms_keep_sorted)

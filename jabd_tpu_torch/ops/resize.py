@@ -1,5 +1,7 @@
 """Resize and adaptive average pooling on NCHW tensors, and the
-per-sample resample plans of device augmentation.
+per-sample resample plans of device augmentation, the batched device
+letterbox and the image pyramid (PIL-bicubic, cv2-bilinear and cv2-cubic
+taps; the batched resample as two matmuls).
 
 Port of `jabd_tpu/ops/resize.py`. For `resize` / `adaptive_avg_pool` the
 JAX package builds per-axis interpolation matrices with torch semantics
@@ -230,28 +232,152 @@ def expand_taps(
     return dense[:, :, :bucket]
 
 
+def separable_resample(
+    images: torch.Tensor,  # [B, bucket_h, bucket_w, C]
+    mv: torch.Tensor,  # [B, th, bucket_h]
+    mh: torch.Tensor,  # [B, tw, bucket_w]
+    dtype: torch.dtype,
+    clip_between: bool,
+) -> torch.Tensor:
+    """[B, th, tw, C] = mv . images . mh^T per sample, as two batched
+    matmuls in `dtype`: rows first, then columns (optionally clipped to
+    [0, 255] between them). The result stays in `dtype`."""
+    b, bh, bw, c = images.shape
+    th, tw = mv.shape[1], mh.shape[1]
+    x = images.to(dtype).reshape(b, bh, bw * c)
+    # Vertical: [B, th, bh] x [B, bh, bw*C] -> [B, th, bw, C].
+    y = torch.bmm(mv.to(dtype), x)
+    if clip_between:
+        y = y.clamp_(0.0, 255.0)
+    # Horizontal: [B, tw, bw] x [B, bw, th*C] -> [B, tw, th, C].
+    y = y.view(b, th, bw, c).transpose(1, 2).reshape(b, bw, th * c)
+    return torch.bmm(mh.to(dtype), y).view(b, tw, th, c).transpose(1, 2)
+
+
+def paste_fill(y: torch.Tensor, inside_v, inside_h, fill: float) -> torch.Tensor:
+    """y [B, th, tw, C] where both the row and the column were pasted, the
+    grey `fill` elsewhere."""
+    inside = (inside_v.float()[:, :, None] * inside_h.float()[:, None, :])[..., None]
+    return y * inside + fill * (1.0 - inside)
+
+
 def resample_canvas(
     images_u8: torch.Tensor,  # [B, bucket_h, bucket_w, 3] uint8
-    mv: torch.Tensor,  # [B, S, bucket_h]
-    mh: torch.Tensor,  # [B, S, bucket_w]
-    inside_v: torch.Tensor,  # [B, S]
-    inside_h: torch.Tensor,  # [B, S]
+    mv: torch.Tensor,  # [B, th, bucket_h]
+    mh: torch.Tensor,  # [B, tw, bucket_w]
+    inside_v: torch.Tensor,  # [B, th]
+    inside_h: torch.Tensor,  # [B, tw]
     fill: float,
     resample_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Apply per-sample separable resample+paste matrices and the grey
-    fill: float32 [B, S, S, 3] in [0, 255]. Two batched matmuls in
-    `resample_dtype` (float32 runs at full float32 precision only with
-    TF32 off): rows first, a clip to [0, 255] between them (PIL clamps
-    each pass), then columns, rounded to whole grey levels."""
-    b, bh, bw, c = images_u8.shape
-    s = mv.shape[1]
-    x = images_u8.to(resample_dtype).reshape(b, bh, bw * c)
-    # Vertical: [B, S, bh] x [B, bh, bw*3] -> [B, S(rows), bw, 3].
-    y = torch.bmm(mv.to(resample_dtype), x).clamp_(0.0, 255.0)
-    # Horizontal: [B, S, bw] x [B, bw, S(rows)*3] -> [B, S(cols), S(rows), 3].
-    y = y.view(b, s, bw, c).transpose(1, 2).reshape(b, bw, s * c)
-    y = torch.bmm(mh.to(resample_dtype), y).view(b, s, s, c).transpose(1, 2)
+    fill: float32 [B, th, tw, 3] in [0, 255] (th != tw allowed). Two
+    batched matmuls in `resample_dtype` (float32 runs at full float32
+    precision only with TF32 off): rows first, a clip to [0, 255] between
+    them (PIL clamps each pass), then columns, rounded to whole grey
+    levels. Shared by device augmentation (fill 128) and the batched
+    device letterbox (fill 84)."""
+    y = separable_resample(images_u8, mv, mh, resample_dtype, clip_between=True)
     y = torch.round(y.float()).clamp_(0.0, 255.0)
-    inside = (inside_v.float()[:, :, None] * inside_h.float()[:, None, :])[..., None]
-    return y * inside + fill * (1.0 - inside)
+    return paste_fill(y, inside_v, inside_h, fill)
+
+
+# ---------------------------------------------------------------------------
+# cv2 resize semantics as taps, copied from `jabd_tpu/ops/resize.py`: the
+# batched device letterbox (INTER_LINEAR), the image pyramid's pre-scale
+# (INTER_CUBIC on float32) and the two composed into one plan.
+# ---------------------------------------------------------------------------
+
+_A = -0.75  # cv2's and torch's bicubic coefficient (cubic convolution)
+
+
+def _cubic_weights(t: np.ndarray) -> np.ndarray:
+    """4-tap cubic convolution weights at fractional offset t in [0,1),
+    A = -0.75: [..., 4] for taps (floor-1, floor, floor+1, floor+2)."""
+    a = _A
+
+    def w1(x):  # |x| <= 1
+        return ((a + 2) * x - (a + 3)) * x * x + 1
+
+    def w2(x):  # 1 < |x| < 2
+        return ((a * x - 5 * a) * x + 8 * a) * x - 4 * a
+
+    return np.stack([w2(t + 1), w1(t), w1(1 - t), w2(2 - t)], axis=-1)
+
+
+def cv2_bilinear_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """cv2.resize INTER_LINEAR float semantics: half-pixel centres, two
+    taps, no antialiasing on downscale. Same (xmin, weights) contract as
+    pil_bicubic_taps."""
+    scale = in_size / out_size
+    src = (np.arange(out_size) + 0.5) * scale - 0.5
+    x0 = np.floor(src).astype(np.int64)
+    t = (src - x0).astype(np.float32)
+    # Edge clamp: out-of-range taps collapse onto the border pixel.
+    lo = np.clip(x0, 0, in_size - 1)
+    hi = np.clip(x0 + 1, 0, in_size - 1)
+    xmin = np.minimum(lo, hi)
+    w = np.zeros((out_size, 2), np.float32)
+    np.add.at(w, (np.arange(out_size), lo - xmin), 1.0 - t)
+    np.add.at(w, (np.arange(out_size), hi - xmin), t)
+    return xmin, w
+
+
+def cv2_cubic_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """cv2.resize INTER_CUBIC float semantics: half-pixel centres, 4-tap
+    cubic with A = -0.75, border-replicate tap clamp, no antialiasing on
+    downscale and no clip of the source coordinate (the centre may go
+    negative at the top edge; the taps are clamped instead). Window start
+    + 4 weights, out-of-range taps accumulated onto the border pixel
+    inside the window."""
+    scale = in_size / out_size
+    src = (np.arange(out_size) + 0.5) * scale - 0.5
+    x0 = np.floor(src).astype(np.int64)
+    w = _cubic_weights((src - x0).astype(np.float64)).astype(np.float32)
+    xmin = np.clip(x0 - 1, 0, max(in_size - 4, 0))
+    out_w = np.zeros((out_size, 4), np.float32)
+    rows = np.arange(out_size)
+    for j in range(4):
+        cols = np.clip(x0 - 1 + j, 0, in_size - 1) - xmin
+        np.add.at(out_w, (rows, cols), w[:, j])
+    return xmin, out_w
+
+
+def compose_scale_letterbox_taps(
+    in_size: int,
+    mid_size: int,
+    out_len: int,
+    offset: int,
+    canvas: int,
+    k_max: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The image pyramid's two host resizes as ONE taps-form plan over the
+    original source axis: cv2-cubic (in_size -> mid_size, the pre-scale)
+    composed with cv2-bilinear (mid_size -> out_len, the letterbox fit)
+    pasted at `offset` on a `canvas`-long axis. Both maps are linear, so
+    the composition is exact up to float32 association.
+
+    The composite window spans at most 4 + ceil(in/mid) source taps;
+    asserts it fits k_max. Returns (xmin [canvas] int32, w [canvas, k_max]
+    float32, inside [canvas] float32), all-zero weight rows outside the
+    pasted span (callers add the grey fill)."""
+    cx, cw = cv2_cubic_taps(in_size, mid_size)
+    px, pw, inside = paste_resize_taps(
+        mid_size, out_len, offset, canvas, taps=cv2_bilinear_taps, k_max=2
+    )
+    j0 = px.astype(np.int64)
+    j1 = np.minimum(j0 + 1, mid_size - 1)
+    start = np.minimum(cx[j0], cx[j1])
+    k_req = int(np.max(np.maximum(cx[j0], cx[j1]) + 4 - start)) if canvas else 0
+    assert k_req <= k_max, (
+        f"composite tap window {k_req} exceeds k_max={k_max} "
+        f"(in={in_size}, mid={mid_size}) - raise k_max or pre-shrink"
+    )
+    w = np.zeros((canvas, k_max), np.float32)
+    rows = np.arange(canvas)
+    for q, jq in enumerate((j0, j1)):
+        off = cx[jq] - start
+        for t in range(4):
+            np.add.at(w, (rows, off + t), pw[:, q] * cw[jq, t])
+    w *= inside[:, None]
+    return start.astype(np.int32), w, inside

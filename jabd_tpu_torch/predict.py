@@ -1,11 +1,14 @@
 """Inference: the detect graph and the `Predictor` entry points.
 
 Port of `postprocess_outputs`, `detect_batch`, `undo_letterbox_pixels`
-and `Predictor` (`__init__`, `detect_preprocessed`, `detect_image`,
-`get_fps`) of `jabd_tpu/predict.py`. One batch runs on the device as
-forward -> top-k of the scores -> decode -> greedy NMS (the CUDA kernel
-on the card) -> compaction to fixed [B, max_detections, 15] rows plus a
-valid mask; the host letterboxes before and scales to pixels after.
+and `Predictor` (`__init__`, `detect_preprocessed`, `detect_images`,
+`detect_image`, `detect_multiscale`, `get_fps`, `get_map_txt_rows`) of
+`jabd_tpu/predict.py`; the JAX Predictor's mesh modes are not here. One
+batch runs on the device as forward -> top-k of the scores -> decode ->
+greedy NMS (the CUDA kernel on the card) -> compaction to fixed
+[B, max_detections, 15] rows plus a valid mask; the host letterboxes
+before (or plans the letterbox that the device applies, in
+`detect_images`) and scales to pixels after.
 
 Detection row layout: [x1, y1, x2, y2, score, 10 landmark coords].
 """
@@ -115,6 +118,28 @@ def undo_letterbox_pixels(
     return dets
 
 
+def rescale_pixels(dets: np.ndarray, sx: float, sy: float) -> np.ndarray:
+    """Scale [N, 15] pixel dets (boxes and landmarks) by (sx, sy) in
+    place, from a pre-scaled image back to its source."""
+    dets[:, [0, 2]] *= sx
+    dets[:, [1, 3]] *= sy
+    dets[:, 5::2] *= sx
+    dets[:, 6::2] *= sy
+    return dets
+
+
+def map_txt_rows(dets: np.ndarray) -> np.ndarray:
+    """[N, 15] pixel dets -> the WIDER evaluator's [N, 5] x y w h score
+    rows, by descending score (a stable sort)."""
+    if len(dets) == 0:
+        return np.zeros((0, 5), np.float32)
+    rows = np.stack(
+        [dets[:, 0], dets[:, 1], dets[:, 2] - dets[:, 0], dets[:, 3] - dets[:, 1], dets[:, 4]],
+        axis=1,
+    )
+    return rows[np.argsort(-rows[:, 4], kind="stable")]
+
+
 class Predictor:
     """Detector app: weights, configs and device in one place.
 
@@ -172,6 +197,34 @@ class Predictor:
         x = torch.as_tensor(images, dtype=torch.float32).to(self.device)
         return self._detect(x)
 
+    def detect_images(self, images) -> list:
+        """Detections of uint8 [H_i, W_i, 3] images of any sizes in one
+        batch: each image's letterbox is planned on the host as resample
+        matrices against one source bucket (`ops/image.py::
+        plan_letterbox`; ceil-128 of the largest side, capped at 2048,
+        larger sources shrunk first) and applied on the device in one
+        batched call (bfloat16 matmuls), then `_detect`. Frames differ
+        from the host letterbox by rounding only. Returns a list of
+        [N_i, 15] pixel-space dets."""
+        if not len(images):
+            return []
+        th, tw = self.pcfg.input_shape
+        bh = min(-(-max(i.shape[0] for i in images) // 128) * 128, 2048)
+        bw = min(-(-max(i.shape[1] for i in images) // 128) * 128, 2048)
+        padded, parts = zip(
+            *(I.plan_letterbox(im, (th, tw), (bh, bw), self.pcfg.letterbox) for im in images)
+        )
+        src = torch.from_numpy(np.stack(padded)).to(self.device)
+        mv, mh, iv, ih = (torch.from_numpy(np.stack(p)).to(self.device) for p in zip(*parts))
+        with torch.inference_mode():
+            frames = I.letterbox_batch_device(src, mv, mh, iv, ih)
+        dets_b, valid_b = self._detect(frames)
+        dets_b, valid_b = dets_b.cpu().numpy(), valid_b.cpu().numpy()
+        return [
+            undo_letterbox_pixels(dets_b[i][valid_b[i]], (th, tw), im.shape[:2], self.pcfg.letterbox)
+            for i, im in enumerate(images)
+        ]
+
     def detect_image(self, image: np.ndarray) -> np.ndarray:
         """One [H, W, 3] uint8/float image -> [N, 15] pixel-space dets."""
         th, tw = self.pcfg.input_shape
@@ -181,6 +234,31 @@ class Predictor:
         return undo_letterbox_pixels(
             dets, (th, tw), image.shape[:2], self.pcfg.letterbox
         )
+
+    def detect_multiscale(self, image: np.ndarray, scales=(0.5, 1.0, 1.5)) -> np.ndarray:
+        """Image-pyramid detection: per scale a float32 cv2-cubic pre-scale
+        (`ops/image.py::cubic_resize_np`, sides at least 32 px) and
+        `detect_image`, the dets scaled back to the image; then the union
+        through the host's greedy NMS (`nms_numpy`, its count varies per
+        image), cut to max_detections. Returns [N, 15] pixel-space dets."""
+        ih, iw = image.shape[:2]
+        all_dets = []
+        for s in scales:
+            sw, sh = max(int(iw * s), 32), max(int(ih * s), 32)
+            d = self.detect_image(I.cubic_resize_np(image, (sw, sh)))
+            if len(d):
+                rescale_pixels(d, iw / sw, ih / sh)
+                all_dets.append(d)
+        if not all_dets:
+            return np.zeros((0, 15), np.float32)
+        merged = np.concatenate(all_dets, 0)
+        keep = N.nms_numpy(merged[:, :4], merged[:, 4], iou_threshold=self.pcfg.nms_iou)
+        return merged[keep[: self.pcfg.max_detections]]
+
+    def get_map_txt_rows(self, image: np.ndarray) -> np.ndarray:
+        """Rows for the WIDER evaluator: [N, 5] x y w h score, by
+        descending score (a stable sort)."""
+        return map_txt_rows(self.detect_image(image))
 
     def get_fps(self, image: np.ndarray, test_interval: int = 100) -> float:
         """Images per second of the detect graph (forward + postprocess)

@@ -194,6 +194,44 @@ def test_flagship_matches_jax(flagship):
         np.testing.assert_allclose(g.numpy(), r, atol=1e-4, rtol=0, err_msg=name)
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_retinaface_mnet025_matches_jax(remat):
+    """The MobileNetV1-0.25 preset (backbone, nearest-upsample FPN, SSH,
+    heads) against its flax twin at random weights, 96x80; the remat
+    segments give the same heads."""
+    cfg = dataclasses.replace(JC.get_model_config("retinaface_mnet025"), compute_dtype="float32")
+    model, variables = flagship_variables(cfg, (96, 80), seed=2)
+    x = np.random.default_rng(8).normal(0, 50, (2, 96, 80, 3)).astype(np.float32)
+    ref = jax.jit(functools.partial(model.apply, train=False))(variables, jnp.asarray(x))
+    tcfg = dataclasses.replace(TC.get_model_config("retinaface_mnet025"), compute_dtype="float32")
+    tmodel = build_model(tcfg, mode="eval", device="cpu")
+    tmodel.load_state_dict(state_dict_from_flax(variables))
+    tmodel.eval()
+    with torch.no_grad():
+        got = tmodel(to_nchw(x), remat=remat)
+    for name, r, g in zip(("loc", "cls", "landm"), ref, got):
+        assert g.shape == np.asarray(r).shape, name
+        # observed max error 8.9e-8; stated tolerance 1e-4
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-4, rtol=0, err_msg=name)
+
+
+def test_retinaface_mnet025_remat_gives_the_plain_gradients():
+    """Training mode: remat's segments recompute the MobileNetV1 blocks in
+    backward; the gradients are the plain forward's, bit for bit."""
+    tcfg = dataclasses.replace(TC.get_model_config("retinaface_mnet025"), compute_dtype="float32")
+    x = torch.from_numpy(np.random.default_rng(9).normal(0, 50, (2, 3, 64, 64)).astype(np.float32))
+    grads = []
+    for remat in (False, True):
+        torch.manual_seed(0)
+        model = build_model(tcfg, mode="train", device="cpu")
+        loc, cls, landm = model(x, remat=remat)
+        (loc.square().sum() + cls.sum() + landm.abs().sum()).backward()
+        grads.append({k: p.grad.clone() for k, p in model.named_parameters()})
+    assert grads[0].keys() == grads[1].keys() and any("dw12_point" in k for k in grads[0])
+    for k in grads[0]:
+        torch.testing.assert_close(grads[1][k], grads[0][k], rtol=0, atol=0, msg=k)
+
+
 def test_flagship_fold_matches_unfolded(flagship):
     x, _, tmodel = flagship
     folded = build_model(tmodel.cfg, mode="eval", device="cpu")
@@ -226,7 +264,7 @@ def test_flagship_bfloat16_runs(flagship):
 @pytest.mark.parametrize(
     "name",
     ["jabd_flagship", "jabd_flagship_diou", "jabd_ecablock_g", "retinaface_r",
-     "jabd_eca_avg", "mnet_v3_plain"],
+     "jabd_eca_avg", "mnet_v3_plain", "retinaface_mnet025"],
 )
 def test_build_model_state_dict_names_mirror_flax(name):
     """Every ported preset's state dict has exactly the flax paths."""
@@ -246,7 +284,7 @@ def test_build_model_state_dict_names_mirror_flax(name):
 
 @pytest.mark.parametrize(
     "name",
-    ["re50_baseline", "mnet_v3_4level", "retinaface_mnet025", "jabd_pixelshuffle",
+    ["re50_baseline", "mnet_v3_4level", "epsa50_4level", "jabd_pixelshuffle",
      "re50_iou_head", "re50_dropout", "re152_4level"],
 )
 def test_build_model_refuses_unported_presets(name):

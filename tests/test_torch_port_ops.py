@@ -32,6 +32,9 @@ PORT_MODULES = [
     "jabd_tpu_torch.data",
     "jabd_tpu_torch.data.device_augment",
     "jabd_tpu_torch.data.wider",
+    "jabd_tpu_torch.eval",
+    "jabd_tpu_torch.eval.run_wider",
+    "jabd_tpu_torch.eval.wider_eval",
     "jabd_tpu_torch.losses",
     "jabd_tpu_torch.models",
     "jabd_tpu_torch.models.fold",
