@@ -75,7 +75,25 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    identity-size image against `detect_image` (within 2e-3 px) on the
    golden model, and on the flagship; `nms_cuda.nms` against the plain
    `nms` at N 5000 and 12,288 (identical), and its raise at N 12,289.
-8. One JSON line of every kernel of the port: launches on the main paths,
+8. The other 14 presets (`[presets]`): random weights from a seeded
+   torch.Generator with every BatchNorm's statistics set from its own
+   input (`calibrate_batchnorms`), so activations stay O(1) at ResNet-152's
+   depth. (a) For each preset float32 heads (TF32 off) at 320x320, bs 2,
+   on the card against the port on the CPU, within 1e-3 * max(1, max|ref|)
+   per head, and bfloat16 heads finite. (b) Each preset's bf16
+   `Predictor.detect_preprocessed` at 640x640, bs 8, confidence 0.02 (5,000
+   valid candidates an image), each with every launch count set to 0 and
+   launching K1; re50_iou_head's Predictor must raise; K1 identical to the
+   plain NMS on re50_eca_nonlocal's candidates; back-to-back ms/batch of
+   four presets and a profile of two. (c) K2 against the plain version at
+   re152_4level's 117,326 priors (840x840), B 34, G 128, on the cases of
+   phase 4, bit-identical; its time and bound. (d) bf16 train steps at
+   840x840: re50_eca_nonlocal at bs 34, re152_4level with remat at the
+   largest of bs 34 / 17 / 8 that fits: loss finite and lower over 5
+   steps on one batch, ms/step, peak memory, a profile, K2 launched; a
+   re50_dropout step whose tap dropout drops 0.5 +- 0.01 of the live
+   values and doubles the rest.
+9. One JSON line of every kernel of the port: launches on the main paths,
    error against the plain version, times and bound.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
@@ -290,12 +308,35 @@ def match_ops(truths, valid, priors, tile: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def seeded_state_dict(cfg, seed: int):
+def calibrate_batchnorms(model, images) -> None:
+    """Set every BatchNorm's running statistics to the batch statistics of
+    its own input, in one eval forward of `images`: each then normalizes
+    what reaches it. Random statistics would compound over ResNet-152's 50
+    residual blocks (each relu(out + skip) about doubles the variance) and
+    saturate the heads. BatchNorms over 1x1 maps (the SE modules') keep
+    theirs: a few images' pooled features vary too little between images
+    to estimate a variance, and other images would then saturate them."""
+    def take(m, args):
+        x = args[0].float()
+        if x.shape[2] * x.shape[3] > 1:
+            m.running_mean.copy_(x.mean((0, 2, 3)))
+            m.running_var.copy_(x.var((0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(take) for m in model.modules()
+             if isinstance(m, torch.nn.BatchNorm2d)]
+    with torch.no_grad():
+        model.eval()(images)
+    for h in hooks:
+        h.remove()
+
+
+def seeded_state_dict(cfg, seed: int, calibrate=None):
     """Random weights for `cfg` from a seeded torch.Generator: conv weights
     N(0, 1/fan_in) (the head convs 0.1 times that), biases N(0, 0.1^2),
     BatchNorm scale 1 + N(0, 0.1^2), shift and running mean N(0, 0.1^2),
-    running var U(0.5, 1.5). The NLM output projection, zero at init,
-    becomes non-zero."""
+    running var U(0.5, 1.5). An NLM's output projection, zero at init,
+    becomes non-zero. With `calibrate` (NCHW images on a device) the
+    running statistics are then set by `calibrate_batchnorms` there."""
     from jabd_tpu_torch.models import build_model
 
     g = torch.Generator().manual_seed(seed)
@@ -315,8 +356,11 @@ def seeded_state_dict(cfg, seed: int):
                 m.bias.copy_(0.1 * torch.randn(c, generator=g))
                 m.running_mean.copy_(0.1 * torch.randn(c, generator=g))
                 m.running_var.copy_(0.5 + torch.rand(c, generator=g))
-    check(bool(model.fpn.nlm.W.weight.abs().sum() > 0), "NLM W is non-zero")
-    return model.state_dict()
+    if model.fpn.nlm is not None:
+        check(bool(model.fpn.nlm.W.weight.abs().sum() > 0), "NLM W is non-zero")
+    if calibrate is not None:
+        calibrate_batchnorms(model.to(calibrate.device), calibrate)
+    return {k: v.cpu() for k, v in model.state_dict().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -434,9 +478,10 @@ def reset_counts():
     matching_cuda.match_front.launches = 0
 
 
-def matching_phase(dev, priors_np):
+def matching_phase(dev, priors_np, tag: str = "[phase4]"):
     """K2 against the plain front half on the card at B 34, G 128 and the
-    840x840 priors. Returns the largest |kernel - plain| over all outputs."""
+    840x840 priors `priors_np`. Returns the largest |kernel - plain| over
+    all outputs."""
     from jabd_tpu_torch.data.wider import batch_targets
     from jabd_tpu_torch.ops import matching as M
     from jabd_tpu_torch.ops import matching_cuda
@@ -464,7 +509,7 @@ def matching_phase(dev, priors_np):
         r_p = M.match_batch(*args, front=M.match_front_plain)
         same = all(torch.equal(x, y) for x, y in zip(r_k, r_p))
         counts = t.valid.sum(1)
-        print(f"[phase4] K2 {name}: B={b} G={g} P={priors.shape[0]}, valid GTs per image "
+        print(f"{tag} K2 {name}: B={b} G={g} P={priors.shape[0]}, valid GTs per image "
               f"min {int(counts.min())} max {int(counts.max())} total {int(counts.sum())}; "
               f"mismatches (overlap, idx, best prior) {mism}, overlaps bit-identical {bits}, "
               f"MatchResult identical {same}, positives {int((r_k.conf_t != 0).sum())}")
@@ -1344,6 +1389,279 @@ def _wider_paths(card, dev, preset, state, tmp):
     return {"launches": sum(launches.values()), "max_abs_err": worst}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the other 14 detector presets
+# ---------------------------------------------------------------------------
+
+NEW_PRESETS = (
+    "jabd_pixelshuffle", "mnet_v3_4level", "re50_eca_nonlocal", "re50_dropout",
+    "re50_baseline", "re50_self_4level", "re152_4level", "re50_fpn_att",
+    "re50_backbone_att", "re50_contrast_eca", "re50_nonlocal", "re50_eca_hsigmoid",
+    "re50_iou_head", "epsa50_4level",
+)
+TIMED_PRESETS = ("re50_eca_nonlocal", "re152_4level", "epsa50_4level", "mnet_v3_4level")
+# Square input sides: (a) heads, (b) serving, (c) K2's priors.
+PRESETS_HEADS_SIZE, PRESETS_SERVE_SIZE, PRESETS_MATCH_SIZE = 320, 640, 840
+
+
+def profile_rows(fn, iters: int, unit: str, card: str, tag: str, top: int = 8) -> None:
+    """Wall and device time of `fn()` under torch.profiler over `iters`
+    calls, with its top kernels by device time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000 / iters
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1000 / iters
+    print(f"[presets] {tag} under the profiler: wall {wall_ms:.3f} ms/{unit}, device busy {busy_ms:.3f} "
+          f"ms/{unit}, idle share {1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in rows) / iters:.0f} "
+          f"kernels/{unit} [{card}]")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[presets]   {e.self_device_time_total / 1000 / iters:8.3f} ms/{unit} "
+              f"{e.count // iters:5d}x {e.key[:90]}")
+
+
+def presets_eval(card, dev, name, calib, x2, batch8, pcfg, counts):
+    """(a) the preset's float32 heads on the card against the CPU and its
+    bfloat16 heads finite; (b) its bf16 Predictor, bs 8, which must launch
+    K1 on 5,000 valid candidates an image (re50_iou_head must raise). Adds the K1 launches to `counts`; returns the largest K1 -
+    plain difference it saw."""
+    import dataclasses
+
+    from jabd_tpu_torch import configs
+    from jabd_tpu_torch.models import build_model
+    from jabd_tpu_torch.models.fold import fold_batchnorm
+    from jabd_tpu_torch.ops import anchors as A
+    from jabd_tpu_torch.ops import nms as N
+    from jabd_tpu_torch.ops import nms_cuda
+    from jabd_tpu_torch.predict import Predictor, postprocess_outputs, select_candidates
+
+    preset = configs.get_model_config(name)
+    cfg32 = dataclasses.replace(preset, compute_dtype="float32")
+    state = seeded_state_dict(preset, seed=NEW_PRESETS.index(name) + 1, calibrate=calib)
+    models = []
+    for where in ("cpu", "cpu", dev):
+        models.append(build_model(cfg32, mode="eval", device=where))
+        models[-1].load_state_dict(state)
+        models[-1].eval()
+    xin = torch.from_numpy(x2).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        ref = models[0](xin)
+        ref64 = models[1].double()(xin.double())
+        got = models[2](xin.to(dev))
+        got16 = fold_batchnorm(models[2]).to(torch.bfloat16)(xin.to(dev))
+    del models
+    parts = []
+    for head, r, r64, g, h in zip(("loc", "cls", "landm", "iou"), ref, ref64, got, got16):
+        err = float((g.cpu() - r).abs().max())
+        scale = max(1.0, float(r.abs().max()))
+        # Which side float64 (CPU) is nearer, for the record; the check is
+        # card f32 against CPU f32.
+        e64 = (float((g.cpu().double() - r64).abs().max()), float((r.double() - r64).abs().max()))
+        parts.append(f"{head} err {err:.3e} max|ref| {float(r.abs().max()):.3e} bound {1e-3 * scale:.3e} "
+                     f"(vs CPU f64: card {e64[0]:.1e}, CPU f32 {e64[1]:.1e})")
+        check(err <= 1e-3 * scale, f"{name} {head}: card f32 within 1e-3 * max(1, max|ref|) of the CPU")
+        check(bool(torch.isfinite(h).all()), f"{name} {head}: bf16 finite")
+    face = ref[1][..., 1]
+    print(f"[presets] (a) {name} f32 {x2.shape[1]}x{x2.shape[2]} bs2: " + "; ".join(parts)
+          + f"; face score min {float(face.min()):.4f} max {float(face.max()):.4f}; bf16 finite")
+
+    if preset.with_iou_head:
+        try:
+            Predictor(preset, state, pcfg, device=dev)
+            check(False, f"{name}: Predictor raises on the IoU head")
+        except ValueError as e:
+            print(f"[presets] (b) {name}: Predictor raises: {e}")
+        return 0.0
+    p16 = Predictor(preset, state, pcfg, device=dev)
+    reset_counts()
+    dets, valid = p16.detect_preprocessed(batch8)
+    torch.cuda.synchronize()
+    launched = nms_cuda.nms_keep_sorted.launches
+    counts[name] = launched
+    check(launched > 0, f"{name}: detect_preprocessed launched K1")
+    check(tuple(dets.shape) == (8, 750, 15) and bool(torch.isfinite(dets).all()), f"{name}: dets finite")
+    x8 = torch.from_numpy(batch8).to(dev)
+    anchors = torch.from_numpy(A.generate_anchors(preset.anchors, batch8.shape[1:3]).copy()).to(dev)
+    var = preset.anchors.variance
+    with torch.inference_mode():
+        heads = p16.model(x8.permute(0, 3, 1, 2))
+        cand_boxes, _, cand_valid, _ = select_candidates(*heads, anchors, pcfg, var)
+    n_valid = cand_valid.sum(1).tolist()
+    want = min(pcfg.pre_nms_topk, anchors.shape[0])
+    check(all(n == want for n in n_valid), f"{name}: {want} valid candidates an image")
+    worst = 0.0
+    line = (f"[presets] (b) {name} bf16 {batch8.shape[1]}x{batch8.shape[2]} bs8: K1 launches {launched}, valid candidates per image "
+            f"{n_valid}, dets per image {valid.sum(1).tolist()}")
+    if name == "re50_eca_nonlocal":
+        with torch.inference_mode():
+            d_k, v_k = postprocess_outputs(*heads, anchors, pcfg, var)
+            d_p, v_p = postprocess_outputs(*heads, anchors, pcfg, var, keep_fn=N.nms_keep_sorted)
+            kb, kv = cand_boxes.contiguous(), cand_valid.contiguous()
+            keep_k = nms_cuda.nms_keep_sorted(kb, kv, pcfg.nms_iou, pcfg.nms_kind)
+            keep_p = N.nms_keep_sorted(kb, kv, pcfg.nms_iou, pcfg.nms_kind)
+        torch.cuda.synchronize()
+        same = torch.equal(v_k, v_p) and torch.equal(d_k, d_p) and torch.equal(keep_k, keep_p)
+        worst = float((keep_k.float() - keep_p.float()).abs().max())
+        check(same, f"{name}: K1 keep masks and dets == plain NMS")
+        line += f"; K1 keep masks and dets identical to the plain NMS (kept {keep_p.sum(1).tolist()})"
+    print(line)
+    if name in TIMED_PRESETS:
+        ms = back_to_back_ms(lambda: p16._detect(x8), iters=10)
+        print(f"[presets] (b) {name} bf16 bs8 {batch8.shape[1]}x{batch8.shape[2]}: back-to-back {ms:.3f} ms/batch "
+              f"({8000 / ms:.1f} img/s) [{card}]")
+        if name in ("re50_eca_nonlocal", "re152_4level"):
+            profile_rows(lambda: p16._detect(x8), 3, "batch", card, f"(b) {name} serving bf16 bs8")
+    del p16
+    torch.cuda.empty_cache()
+    return worst
+
+
+def presets_train(card, dev, name, tcfg, counts, steps: int = 5):
+    """(d) bf16 train steps of `name` at tcfg's size and batch on one batch:
+    loss finite and lower after `steps`, ms/step, img/s, peak memory, K2
+    launches. Returns False when the batch does not fit on the card."""
+    from jabd_tpu_torch import configs
+    from jabd_tpu_torch import train as T
+    from jabd_tpu_torch.data.wider import batch_targets
+    from jabd_tpu_torch.ops import anchors as A
+    from jabd_tpu_torch.ops import matching_cuda
+
+    preset = configs.get_model_config(name)
+    size, bsz, g = tcfg.image_size, tcfg.batch_size, tcfg.max_targets
+    rng = np.random.default_rng(10)
+    anchors = torch.from_numpy(A.generate_anchors(preset.anchors, (size, size)).copy()).to(dev)
+    images = torch.from_numpy(rng.normal(0, 50, (bsz, size, size, 3)).astype(np.float32)).to(dev)
+    targets = to_targets(batch_targets(face_rows(rng, np.maximum(spread_counts(bsz, g), 1)), g), dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state = T.create_train_state(preset, tcfg, 1, freeze_backbone=False, device=dev)
+        step = T.make_train_step(preset, tcfg)
+        reset_counts()
+        losses = [step(state, images, targets, anchors)[1]["loss"] for _ in range(steps)]
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError:
+        print(f"[presets] (d) {name} bs{bsz} remat={tcfg.remat}: out of memory")
+        return False
+    launched = matching_cuda.match_front.launches
+    counts[f"{name} train_step x{steps}"] = launched
+    check(launched > 0, f"{name}: the train step launched K2")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    vals = [float(v) for v in losses]
+    check(all(np.isfinite(vals)) and vals[-1] < vals[0], f"{name}: bf16 loss finite and lower after {steps} steps")
+    ms = back_to_back_ms(lambda: step(state, images, targets, anchors), iters=3, warmup=1)
+    print(f"[presets] (d) {name} bf16 bs{bsz} {size}x{size} remat={tcfg.remat}: P {anchors.shape[0]}, losses "
+          f"{[round(v, 4) for v in vals]}, K2 launches {launched}; back-to-back {ms:.3f} ms/step "
+          f"({1000 * bsz / ms:.1f} img/s), peak memory {peak:.2f} GiB [{card}]")
+    profile_rows(lambda: step(state, images, targets, anchors), 2, "step", card,
+                 f"(d) {name} train step bf16 bs{bsz} remat={tcfg.remat}")
+    return True
+
+
+def presets_phase(card, dev):
+    """The other 14 presets (see the module docstring, phase 8). Returns
+    the K1 and K2 numbers for the kernels line."""
+    import dataclasses
+
+    from jabd_tpu_torch import configs
+    from jabd_tpu_torch.data.wider import batch_targets
+    from jabd_tpu_torch.models import retinaface as RF
+    from jabd_tpu_torch.ops import anchors as A
+    from jabd_tpu_torch.ops import matching as M
+    from jabd_tpu_torch.ops import matching_cuda
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    hs, ss = PRESETS_HEADS_SIZE, PRESETS_SERVE_SIZE
+    calib = torch.from_numpy(rng.normal(0, 50, (4, 3, hs, hs)).astype(np.float32)).to(dev)
+    x2 = rng.normal(0, 50, (2, hs, hs, 3)).astype(np.float32)
+    batch8 = rng.normal(0, 50, (8, ss, ss, 3)).astype(np.float32)
+    pcfg = configs.PredictConfig(confidence=0.02, input_shape=(ss, ss))
+    k1_counts = {}
+    k1_err = 0.0
+    for name in NEW_PRESETS:
+        k1_err = max(k1_err, presets_eval(card, dev, name, calib, x2, batch8, pcfg, k1_counts))
+    print(f"[presets] (b) K1 launches per preset {k1_counts} ({time.perf_counter() - t0:.1f} s so far)")
+
+    # (c) K2 against the plain front half at re152_4level's priors.
+    side = PRESETS_MATCH_SIZE
+    priors_np = A.generate_anchors(configs.get_model_config("re152_4level").anchors, (side, side)).copy()
+    k2_err = matching_phase(dev, priors_np, tag="[presets] (c)")
+    b, g = 34, 128
+    priors = torch.from_numpy(priors_np).to(dev)
+    t = to_targets(batch_targets(face_rows(np.random.default_rng(4), spread_counts(b, g)), g), dev)
+    ms = cuda_ms(lambda: matching_cuda.match_front(t.boxes, priors, t.valid), iters=30)
+    dev_ms = device_ms(lambda: matching_cuda.match_front(t.boxes, priors, t.valid))
+    plain_ms = cuda_ms(lambda: M.match_front_plain(t.boxes, priors, t.valid), iters=5)
+    p = priors.shape[0]
+    nbytes = t.boxes.numel() * 4 + t.valid.numel() + priors.numel() * 4 + b * p * (4 + 8) + b * g * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = match_ops(t.boxes, t.valid, priors, matching_cuda._library().jabd_match_tile()) / F32_FLOPS * 1e3
+    print(f"[presets] (c) K2 match_front B={b} G={g} P={p}, {int(t.valid.sum())} valid GTs (spread): kernel "
+          f"{ms:.4f} ms (device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bytes bound {bytes_ms:.6f} ms, "
+          f"operations bound {ops_ms:.6f} ms [{card}]")
+    del t, priors
+    torch.cuda.empty_cache()
+
+    # (d) bf16 train steps at TrainConfig's 840x840: re50_eca_nonlocal plain at bs 34,
+    # re152_4level with remat at the largest of 34, 17, 8 that fits.
+    k2_counts = {}
+    tcfg = configs.TrainConfig()
+    check(presets_train(card, dev, "re50_eca_nonlocal", tcfg, k2_counts), "re50_eca_nonlocal bs34 fits")
+    for bsz in (34, 17, 8):
+        if presets_train(card, dev, "re152_4level", dataclasses.replace(tcfg, batch_size=bsz, remat=True), k2_counts):
+            break
+    else:
+        check(False, "re152_4level trains at batch 8 with remat")
+
+    # re50_dropout: a train step with the taps' dropout, its share and scale.
+    from jabd_tpu_torch import train as T
+
+    name = "re50_dropout"
+    preset = configs.get_model_config(name)
+    dcfg = dataclasses.replace(tcfg, batch_size=8)
+    state = T.create_train_state(preset, dcfg, 1, freeze_backbone=False, device=dev)
+    model = state.model
+    seen, raw = {}, {}
+    hooks = [getattr(model, f"eca_tap{i + 1}").register_forward_pre_hook(
+        lambda m, a, i=i: seen.__setitem__(i, a[0].detach().clone())) for i in range(3)]
+    hooks.append(model.backbone.register_forward_hook(
+        lambda m, a, out: raw.update((i, o.detach().clone()) for i, o in enumerate(out))))
+    rng = np.random.default_rng(11)
+    size = dcfg.image_size
+    anchors = torch.from_numpy(A.generate_anchors(preset.anchors, (size, size)).copy()).to(dev)
+    images = torch.from_numpy(rng.normal(0, 50, (8, size, size, 3)).astype(np.float32)).to(dev)
+    targets = to_targets(batch_targets(face_rows(rng, [20] * 8), 128), dev)
+    reset_counts()
+    _, metrics = T.make_train_step(preset, dcfg)(state, images, targets, anchors)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    k2_counts[f"{name} train_step"] = matching_cuda.match_front.launches
+    check(matching_cuda.match_front.launches > 0, f"{name}: the train step launched K2")
+    shares = []
+    for i in range(3):
+        live = raw[i] != 0
+        kept = seen[i] != 0
+        shares.append(1.0 - float(kept[live].float().mean()))
+        check(abs(shares[-1] - 0.5) <= 0.01, f"{name} tap {i + 1}: drop share within 0.5 +- 0.01")
+        check(torch.equal(seen[i][kept], 2.0 * raw[i][kept]) and not bool(kept[~live].any()),
+              f"{name} tap {i + 1}: kept values scaled by 2")
+    print(f"[presets] (d) {name} bf16 bs8 train step (dropout stream {RF.dropout_seed(dcfg.seed, 0)}): loss "
+          f"{float(metrics['loss']):.4f}, tap drop shares {[round(s, 5) for s in shares]}, kept values x2")
+    del state, model, seen, raw
+    torch.cuda.empty_cache()
+    print(f"[presets] K2 launches per path {k2_counts}; phase {time.perf_counter() - t0:.1f} s")
+    return ({"launches": sum(k1_counts.values()), "max_abs_err": k1_err},
+            {"launches": sum(k2_counts.values()), "max_abs_err": k2_err})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1566,14 +1884,19 @@ def main() -> int:
     # -- phase 7: the rest of inference --------------------------------------
     k1_wider = wider_phase(card, dev, preset, state)
 
-    # -- phase 8: the kernels line -------------------------------------------
+    # -- phase 8: the other 14 presets ---------------------------------------
+    k1_presets, k2_presets = presets_phase(card, dev)
+    k2["launches"] += k2_presets["launches"]
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_presets["max_abs_err"])
+
+    # -- phase 9: the kernels line -------------------------------------------
     kernels = [{
         "name": "nms_keep_sorted",
         "route": "cuda",
         "source": "jabd_tpu_torch/csrc/nms.cu",
         "replaces": "jabd_tpu/ops/nms_pallas.py:42",
-        "launches": main_launches + k1_wider["launches"],
-        "max_abs_err": max(worst, k1_wider["max_abs_err"]),
+        "launches": main_launches + k1_wider["launches"] + k1_presets["launches"],
+        "max_abs_err": max(worst, k1_wider["max_abs_err"], k1_presets["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),

@@ -73,7 +73,7 @@ def multibox_loss(
     through it."""
     if matching_mesh is not None:
         raise NotImplementedError(
-            "matching over a device mesh comes with the parallelism slice (slice 6)"
+            "matching over a device mesh comes with the parallelism slice"
         )
     loc_data, conf_data, landm_data = predictions
     num_priors = conf_data.shape[1]

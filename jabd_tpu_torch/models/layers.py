@@ -1,10 +1,10 @@
 """Shared building blocks of the detector, NCHW `nn.Module`s.
 
 Port of `jabd_tpu/models/layers.py`: activations, `ConvBN`, `ECA` (avg
-and stdv statistics), `SEModule`, `PSP` + `NLM`, `SSH`, the cascade `FPN`
-and `PredictionHead`. Submodule names mirror the flax names, so a flax
-parameter path is a state-dict key with '/' read as '.'
-(`utils/convert.py`).
+and stdv statistics), `SEModule`, `PSP` + `NLM`, `SSH`, `PixelShuffleUp`,
+the `FPN` (cascade and the two 4-level wirings) and `PredictionHead`.
+Submodule names mirror the flax names, so a flax parameter path is a
+state-dict key with '/' read as '.' (`utils/convert.py`).
 
 Each module that holds a BatchNorm has `fold_()`, which merges the
 BatchNorm into the conv before it (models/fold.py).
@@ -288,15 +288,39 @@ class SSH(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# FPN (cascade wiring)
+# FPN
 # ---------------------------------------------------------------------------
 
 
+class PixelShuffleUp(nn.Module):
+    """Learned x`factor` upsample: a 3x3 conv with bias to C * r^2
+    channels, then depth-to-space in nn.PixelShuffle's channel order,
+    out[c, h*r + i, w*r + j] = in[c*r*r + i*r + j, h, w], which is also
+    the JAX package's."""
+
+    def __init__(self, channels: int, factor: int = 2):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels * factor * factor, 3, padding=1)
+        self.shuffle = nn.PixelShuffle(factor)
+
+    def forward(self, x):
+        return self.shuffle(self.conv(x))
+
+
 class FPN(nn.Module):
-    """Top-down pyramid, 'cascade' wiring: each level fuses the MERGED map
-    of the level below, upsampled to its size (an optional NLM, shared by
-    all levels, runs on the upsampled map), through a per-level 3x3 merge
-    conv. Laterals are 1x1 ConvBNs."""
+    """Top-down pyramid. Laterals are 1x1 ConvBNs; the upsample of a level
+    to the size of the one above is `upsample` ('nearest', 'bilinear',
+    'bicubic' with align_corners=True, or 'pixelshuffle': one learned
+    PixelShuffleUp shared by all levels, its x2 output cropped to the
+    target grid), followed by an NLM shared by all levels when given.
+
+    variant 'cascade': each level fuses the MERGED map of the level below
+    through its own 3x3 merge conv (`merge1`..). The 4-level variants
+    share ONE merge conv (`merge_shared`) and keep the reference's order,
+    2 -> 1, then 4 -> 3, then 3 -> 2; outputs [o1, o2, o3, l4]:
+      'raw152':   o2 fuses the merged level 3 (o3);
+      'raw152_5': o2 fuses the raw level-3 lateral.
+    """
 
     def __init__(
         self,
@@ -305,33 +329,55 @@ class FPN(nn.Module):
         upsample: str = "nearest",
         nlm_ch: Optional[int] = None,
         nlm_psp: Tuple[int, ...] = (1, 3, 6, 8),
+        variant: str = "cascade",
     ):
         super().__init__()
         leaky = 0.1 if out_channels <= 64 else 0.0
         n = len(in_channels)
         self.upsample = upsample
+        self.variant = variant
         for i, cin in enumerate(in_channels):
             self.add_module(f"output{i + 1}", ConvBN(cin, out_channels, 1, act=leaky))
-        for i in range(n - 1):
-            self.add_module(
-                f"merge{i + 1}", ConvBN(out_channels, out_channels, 3, act=leaky)
-            )
+        if variant == "cascade":
+            for i in range(n - 1):
+                self.add_module(
+                    f"merge{i + 1}", ConvBN(out_channels, out_channels, 3, act=leaky)
+                )
+        elif variant in ("raw152", "raw152_5"):
+            if n != 4:
+                raise ValueError(f"{variant} is the 4-level reference wiring, got {n} levels")
+            self.merge_shared = ConvBN(out_channels, out_channels, 3, act=leaky)
+        else:
+            raise ValueError(f"unknown FPN variant {variant!r}")
         self.nlm = NLM(out_channels, nlm_ch, nlm_psp) if nlm_ch is not None else None
+        self.pix = PixelShuffleUp(out_channels) if upsample == "pixelshuffle" else None
         self.n = n
+
+    def _up(self, x, like):
+        th, tw = like.shape[2:]
+        if self.pix is not None:
+            up = self.pix(x)[:, :, :th, :tw]
+            if up.shape[2:] != like.shape[2:]:
+                raise ValueError(f"pixelshuffle x2 {tuple(x.shape)} cannot reach {tuple(like.shape)}")
+        else:
+            up = R.resize(x, (th, tw), mode=self.upsample, align_corners=True)
+        return self.nlm(up) if self.nlm is not None else up
 
     def forward(self, inputs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         laterals = [getattr(self, f"output{i + 1}")(x) for i, x in enumerate(inputs)]
-        outs = [None] * self.n
-        outs[-1] = laterals[-1]
-        for i in range(self.n - 2, -1, -1):
-            up = R.resize(
-                outs[i + 1], laterals[i].shape[2:], mode=self.upsample,
-                align_corners=True,
-            )
-            if self.nlm is not None:
-                up = self.nlm(up)
-            outs[i] = getattr(self, f"merge{i + 1}")(laterals[i] + up)
-        return outs
+        if self.variant == "cascade":
+            outs = [None] * self.n
+            outs[-1] = laterals[-1]
+            for i in range(self.n - 2, -1, -1):
+                up = self._up(outs[i + 1], laterals[i])
+                outs[i] = getattr(self, f"merge{i + 1}")(laterals[i] + up)
+            return outs
+        merge = self.merge_shared
+        l1, l2, l3, l4 = laterals
+        o1 = merge(l1 + self._up(l2, l1))
+        o3 = merge(l3 + self._up(l4, l3))
+        o2 = merge(l2 + self._up(o3 if self.variant == "raw152" else l3, l2))
+        return [o1, o2, o3, l4]
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """MobileNetV3-Large and MobileNetV1-0.25 backbones, NCHW. Port of
-`MNV3Block`, the block tables, `MobileNetV3Backbone` and
-`MobileNetV1Backbone` of `jabd_tpu/models/mobilenet.py`."""
+`MNV3Block`, the block tables (the 3- and 4-stage splits),
+`MobileNetV3Backbone` and `MobileNetV1Backbone` of
+`jabd_tpu/models/mobilenet.py`."""
 
 from __future__ import annotations
 
@@ -106,6 +107,14 @@ _L_STAGE3 = [
 
 # 3-stage split: taps at 40 / 80 / 160 channels (strides 8 / 16 / 32).
 MNV3_LARGE_3STAGE = [_L_STAGE1, _L_STAGE2, _L_STAGE3]
+
+# 4-stage split: taps at 40 / 80 / 80 / 160 channels (strides 8 / 16 / 16 / 32).
+MNV3_LARGE_4STAGE = [
+    _L_STAGE1[:4],
+    [_L_STAGE1[4], _L_STAGE1[5], _L_STAGE2[0]],
+    _L_STAGE2[1:],
+    _L_STAGE3,
+]
 
 
 class MobileNetV3Backbone(nn.Module):

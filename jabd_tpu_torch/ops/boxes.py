@@ -1,6 +1,7 @@
 """Box geometry and the SSD codec, on torch tensors [..., N, 4].
 
-Port of `point_form`, `intersect`, `area`, `jaccard`, `elementwise_diou`,
+Port of `point_form`, `intersect`, `area`, `jaccard`,
+`iou_pairwise_general`, `elementwise_diou`,
 `encode`, `decode`, `encode_landm`, `decode_landm` and `log_sum_exp` of
 `jabd_tpu/ops/boxes.py`, with the same operation order so that float32
 results agree to rounding.
@@ -8,6 +9,7 @@ results agree to rounding.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -60,6 +62,41 @@ def jaccard(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
     inter = intersect(box_a, box_b)
     union = area(box_a)[..., :, None] + area(box_b)[..., None, :] - inter
     return inter / union
+
+
+def iou_pairwise_general(box_a: torch.Tensor, box_b: torch.Tensor, kind: str = "iou") -> torch.Tensor:
+    """Pairwise IoU / GIoU / DIoU / CIoU matrix [..., A, B] of corner-form
+    boxes (utils/box_utils.py:5-158, bbox_overlaps_{iou,giou,diou,ciou})."""
+    inter = intersect(box_a, box_b)
+    union = area(box_a)[..., :, None] + area(box_b)[..., None, :] - inter
+    iou = inter / union
+    if kind == "iou":
+        return iou
+
+    enc_min = torch.minimum(box_a[..., :, None, :2], box_b[..., None, :, :2])
+    enc_max = torch.maximum(box_a[..., :, None, 2:], box_b[..., None, :, 2:])
+    enc_wh = torch.clamp(enc_max - enc_min, min=0.0)
+    if kind == "giou":
+        enc_area = enc_wh[..., 0] * enc_wh[..., 1]
+        return iou - (enc_area - union) / torch.clamp(enc_area, min=1e-7)
+
+    ctr_a = (box_a[..., :2] + box_a[..., 2:]) / 2
+    ctr_b = (box_b[..., :2] + box_b[..., 2:]) / 2
+    d2 = torch.sum((ctr_a[..., :, None, :] - ctr_b[..., None, :, :]) ** 2, dim=-1)
+    c2 = torch.sum(enc_wh**2, dim=-1)
+    diou = iou - d2 / torch.clamp(c2, min=1e-7)
+    if kind == "diou":
+        return diou
+    if kind == "ciou":
+        wh_a = (box_a[..., 2:] - box_a[..., :2])[..., :, None, :]
+        wh_b = (box_b[..., 2:] - box_b[..., :2])[..., None, :, :]
+        v = (4 / math.pi**2) * (
+            torch.atan(wh_a[..., 0] / torch.clamp(wh_a[..., 1], min=1e-7))
+            - torch.atan(wh_b[..., 0] / torch.clamp(wh_b[..., 1], min=1e-7))
+        ) ** 2
+        alpha = v / torch.clamp(1 - iou + v, min=1e-7)
+        return diou - alpha * v
+    raise ValueError(f"unknown iou kind {kind!r}")
 
 
 def elementwise_diou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:

@@ -147,7 +147,7 @@ class Predictor:
     `utils.convert.state_dict_from_flax`. With `fold_bn` (the default, as
     in the JAX package) the BatchNorms are folded into the convs, then a
     bfloat16 preset casts the folded weights. Runs on the card unless
-    `device` is given.
+    `device` is given. Raises ValueError for a model with an IoU head.
     """
 
     def __init__(
@@ -158,6 +158,11 @@ class Predictor:
         fold_bn: bool = True,
         device=None,
     ):
+        if model_cfg.with_iou_head:
+            raise ValueError(
+                f"model {model_cfg.name!r} has an IoU head (a fourth output); "
+                "detection takes (loc, conf, landm) only, as in the JAX package"
+            )
         self.device = resolve_device(device)
         self.mcfg = model_cfg
         self.pcfg = predict_cfg or configs.PredictConfig()

@@ -37,15 +37,22 @@ import torch
 from jabd_tpu_torch import configs, losses, resolve_device
 from jabd_tpu_torch.models import build_model
 from jabd_tpu_torch.models.init import reference_weights_init
+from jabd_tpu_torch.models.retinaface import dropout_seed
 from jabd_tpu_torch.ops import anchors as A
 
 
-def check_supported(train_cfg: configs.TrainConfig) -> None:
+def check_supported(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConfig) -> None:
     """Raise NotImplementedError for a TrainConfig option the port has
-    not brought yet; it never runs something else in its place."""
+    not brought yet, and ValueError for a model the loss cannot take; it
+    never runs something else in its place."""
+    if model_cfg.with_iou_head:
+        raise ValueError(
+            f"model {model_cfg.name!r} has an IoU head (a fourth output); the "
+            "multibox loss takes (loc, conf, landm) only, as in the JAX package"
+        )
     if train_cfg.fsdp:
         raise NotImplementedError(
-            "the PyTorch port does not have yet: fsdp: the parallelism slice (slice 6)"
+            "the PyTorch port does not have yet: fsdp: the parallelism slice"
         )
 
 
@@ -193,15 +200,25 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
     (normalized by its own positives) and backward; the BatchNorm
     statistics carry from chunk to chunk; the summed gradients are divided
     by the count before one Adam update; metrics are the chunks' means.
-    With device augmentation each chunk augments its own slice."""
-    check_supported(train_cfg)
+    With device augmentation each chunk augments its own slice.
+
+    With `tap_dropout` each chunk draws its masks from a torch.Generator
+    on the images' device seeded with `dropout_seed(train_cfg.seed,
+    state.step * microbatches + i)`: deterministic under resume, as the
+    JAX package's fold_in(PRNGKey(seed), step) is, though not its draws.
+
+    Raises ValueError for a model with an IoU head."""
+    check_supported(model_cfg, train_cfg)
     bf16 = model_cfg.compute_dtype == "bfloat16"
     mb = max(train_cfg.microbatches, 1)  # <= 1: the whole batch, as in JAX
 
-    def chunk_backward(model, images, targets, anchors):
+    def chunk_backward(model, images, targets, anchors, stream: int):
         x = images.permute(0, 3, 1, 2)
+        generator = None
+        if model_cfg.tap_dropout > 0.0:
+            generator = torch.Generator(x.device).manual_seed(dropout_seed(train_cfg.seed, stream))
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-            out = model(x, remat=train_cfg.remat)
+            out = model(x, remat=train_cfg.remat, generator=generator)
         saved = _batchnorm_stats(model) if train_cfg.remat else None
         parts = losses.multibox_loss(
             out,
@@ -230,7 +247,8 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
         for i in range(mb):
             part = slice(i * n, (i + 1) * n)
             chunk_targets = losses.Targets(*(t[part] for t in targets))
-            chunks.append(chunk_backward(model, make_images(part), chunk_targets, anchors))
+            # A dropout stream per chunk: step * mb + i, as in JAX.
+            chunks.append(chunk_backward(model, make_images(part), chunk_targets, anchors, state.step * mb + i))
         if mb == 1:
             metrics = chunks[0]
         else:

@@ -272,6 +272,32 @@ def test_decoder_gives_what_cv2_imread_gives(val_tree, tmp_path):
     assert TRW._scan_bucket({("e", "x"): got}, [("e", "x")]) == (384, 128)
 
 
+@pytest.mark.parametrize(
+    "name,kw",
+    [("q95_444", dict(quality=95, subsampling=0)),
+     ("q75_420", dict(quality=75, subsampling=2)),
+     ("q85_420_progressive", dict(quality=85, subsampling=2, progressive=True))],
+)
+def test_decoder_gives_what_cv2_imread_gives_on_textured_jpegs(tmp_path, name, kw):
+    """WIDER is all JPEG: seeded noise over colour gradients, 1024x768, at
+    q 95 with 4:4:4 chroma, q 75 with 4:2:0, and a progressive file; the
+    port's decoder (PIL) against cv2.imread (libjpeg), byte for byte
+    (observed: identical with PIL 12.1.0 and cv2 5.0.0)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(17)
+    h, w = 768, 1024
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx / w * 255, yy / h * 255, (xx + yy) / (w + h) * 255], -1)
+    rgb = np.clip(base + rng.normal(0, 40, (h, w, 3)), 0, 255).astype(np.uint8)
+    path = str(tmp_path / f"{name}.jpg")
+    Image.fromarray(rgb).save(path, **kw)
+    want = cv2.imread(path)
+    got = TRW.decode_bgr(path)
+    assert got.shape == want.shape == (h, w, 3)
+    np.testing.assert_array_equal(got, want)
+
+
 def _write_png(path, rgb, filters):
     """A PNG whose row y uses scanline filter filters[y % len]."""
     h, w, _ = rgb.shape

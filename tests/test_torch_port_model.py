@@ -261,13 +261,10 @@ def test_flagship_bfloat16_runs(flagship):
     assert float((got[1] - ref[1]).abs().max()) < 0.25  # class probabilities
 
 
-@pytest.mark.parametrize(
-    "name",
-    ["jabd_flagship", "jabd_flagship_diou", "jabd_ecablock_g", "retinaface_r",
-     "jabd_eca_avg", "mnet_v3_plain", "retinaface_mnet025"],
-)
+@pytest.mark.parametrize("name", sorted(TC.MODEL_PRESETS))
 def test_build_model_state_dict_names_mirror_flax(name):
-    """Every ported preset's state dict has exactly the flax paths."""
+    """Every preset's state dict, at full depth, has exactly the flax
+    paths and shapes (from jax.eval_shape: no JIT)."""
     cfg = dataclasses.replace(JC.get_model_config(name), compute_dtype="float32")
     model = jax_build_model(cfg, mode="eval")
     shapes = jax.eval_shape(
@@ -282,11 +279,13 @@ def test_build_model_state_dict_names_mirror_flax(name):
         assert tuple(sd[key].shape) == tuple(value.shape), key
 
 
-@pytest.mark.parametrize(
-    "name",
-    ["re50_baseline", "mnet_v3_4level", "epsa50_4level", "jabd_pixelshuffle",
-     "re50_iou_head", "re50_dropout", "re152_4level"],
-)
-def test_build_model_refuses_unported_presets(name):
-    with pytest.raises(NotImplementedError, match=name):
-        build_model(TC.get_model_config(name), device="cpu")
+def test_build_model_refuses_eca_g_with_four_levels():
+    """The one configuration the JAX package refuses: eca_g block
+    attention's indices are the 3-stage split's."""
+    cfg = dataclasses.replace(TC.get_model_config("mnet_v3_4level"), backbone_block_attention="eca_g")
+    jcfg = dataclasses.replace(JC.get_model_config("mnet_v3_4level"), backbone_block_attention="eca_g")
+    with pytest.raises(ValueError, match="eca_g") as port_err:
+        build_model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="eca_g") as jax_err:
+        jax_build_model(jcfg)
+    assert str(port_err.value) == str(jax_err.value)

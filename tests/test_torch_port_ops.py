@@ -37,10 +37,12 @@ PORT_MODULES = [
     "jabd_tpu_torch.eval.wider_eval",
     "jabd_tpu_torch.losses",
     "jabd_tpu_torch.models",
+    "jabd_tpu_torch.models.epsa",
     "jabd_tpu_torch.models.fold",
     "jabd_tpu_torch.models.init",
     "jabd_tpu_torch.models.layers",
     "jabd_tpu_torch.models.mobilenet",
+    "jabd_tpu_torch.models.resnet",
     "jabd_tpu_torch.models.retinaface",
     "jabd_tpu_torch.ops",
     "jabd_tpu_torch.ops.anchors",
