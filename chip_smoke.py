@@ -93,7 +93,30 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    steps on one batch, ms/step, peak memory, a profile, K2 launched; a
    re50_dropout step whose tap dropout drops 0.5 +- 0.01 of the live
    values and doubles the rest.
-9. One JSON line of every kernel of the port: launches on the main paths,
+9. The app surface (`[app]`), each path with every launch count set to 0
+   and launching its kernel, the subcommands run in this process through
+   `cli.main` (and one as `python3 -m jabd_tpu_torch.cli` in a
+   subprocess): (a) the trained golden fixture saved under the reference's
+   `.pth` names, `cli map-txt` (batch 3) and `cli eval` on its PNGs, the
+   dumps against an in-process `run_wider_val` at the PredictConfig the CLI
+   builds, and `cli predict` of a seeded flagship `.pth` at 640x640 against
+   `detect_image`; (c) `cli export` of the bf16 flagship (batch 8,
+   640x640) loaded in a fresh interpreter that imports `aot.py` only: no
+   model code imported, K1 launched, valid masks equal to the live
+   Predictor's; (b) the HTTP daemon (`serve.make_server`, what `cli serve`
+   starts) over the float32 flagship (TF32 off), 16 concurrent JPEG POSTs
+   against `detect_image`, `/healthz` counts, K1 per batch, and one request
+   to a daemon over the artifact; (d) `quantize_int8` of the bf16 flagship
+   on 8 seeded frames: at every quantized site the int32 conv of the card's
+   `_int_mm` route bit-equal to the float64 plain version, heads within
+   the JAX package's bounds of bf16 (cls mean < 0.02, box mean < 0.05),
+   times against bf16, and the int8 artifact equal to live int8; (e)
+   `cli train` (bs 34, 840x840, one epoch over 34 PNGs with a label.txt):
+   its checkpoint and metrics.csv, K2 launched, then `cli predict` from
+   the checkpoint directory; (f) `cli count --per-layer` (params equal to
+   the CPU model's, rows summing to the total) and `cli fps` by both
+   methods.
+10. One JSON line of every kernel of the port: launches on the main paths,
    error against the plain version, times and bound.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
@@ -1404,7 +1427,7 @@ TIMED_PRESETS = ("re50_eca_nonlocal", "re152_4level", "epsa50_4level", "mnet_v3_
 PRESETS_HEADS_SIZE, PRESETS_SERVE_SIZE, PRESETS_MATCH_SIZE = 320, 640, 840
 
 
-def profile_rows(fn, iters: int, unit: str, card: str, tag: str, top: int = 8) -> None:
+def profile_rows(fn, iters: int, unit: str, card: str, tag: str, top: int = 8, phase: str = "[presets]") -> None:
     """Wall and device time of `fn()` under torch.profiler over `iters`
     calls, with its top kernels by device time."""
     fn()
@@ -1418,11 +1441,11 @@ def profile_rows(fn, iters: int, unit: str, card: str, tag: str, top: int = 8) -
         wall_ms = (time.perf_counter() - t0) * 1000 / iters
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1000 / iters
-    print(f"[presets] {tag} under the profiler: wall {wall_ms:.3f} ms/{unit}, device busy {busy_ms:.3f} "
+    print(f"{phase} {tag} under the profiler: wall {wall_ms:.3f} ms/{unit}, device busy {busy_ms:.3f} "
           f"ms/{unit}, idle share {1 - busy_ms / wall_ms:.3f}, {sum(e.count for e in rows) / iters:.0f} "
           f"kernels/{unit} [{card}]")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"[presets]   {e.self_device_time_total / 1000 / iters:8.3f} ms/{unit} "
+        print(f"{phase}   {e.self_device_time_total / 1000 / iters:8.3f} ms/{unit} "
               f"{e.count // iters:5d}x {e.key[:90]}")
 
 
@@ -1662,6 +1685,459 @@ def presets_phase(card, dev):
             {"launches": sum(k2_counts.values()), "max_abs_err": k2_err})
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the app surface (CLI, daemon, artifacts, int8, .pth names)
+# ---------------------------------------------------------------------------
+
+# Sizes of the [app] phase: the flagship's serving shape and the training
+# recipe's, as cli.py's users run them. A CPU rehearsal may shrink them.
+APP_SIZE, APP_BATCH, APP_TRAIN_SIZE, APP_TRAIN_BATCH = 640, 8, 840, 34
+# Bound of the daemon's and the artifact's detections against the live
+# Predictor's, in pixels: the JSON rounds to 1e-3, and batch 8 against
+# batch 1 may run other cuDNN algorithms (float32, TF32 off: ~1e-5 px).
+APP_DET_TOL = 5e-3
+
+
+def run_cli(argv):
+    """cli.main(argv) in this process (the launch counts stay visible);
+    returns its standard output, also echoed under an [app] prefix."""
+    import contextlib
+    import io
+
+    from jabd_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main([str(a) for a in argv])
+    out = buf.getvalue()
+    for line in out.splitlines()[-3:]:
+        print(f"[app]   cli {argv[0]}: {line[:160]}")
+    return out
+
+
+def last_json(text: str) -> dict:
+    return json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+
+
+def read_dumps(root: str) -> dict:
+    """{(event, stem): [N, 5] rows} of a map-txt dump tree."""
+    out = {}
+    for event in sorted(os.listdir(root)):
+        for name in sorted(os.listdir(os.path.join(root, event))):
+            with open(os.path.join(root, event, name)) as f:
+                lines = f.read().splitlines()
+            rows = np.asarray([[float(v) for v in ln.split()] for ln in lines[2:]], np.float64).reshape(-1, 5)
+            check(int(lines[1]) == len(rows), f"{event}/{name}: count line matches its rows")
+            out[(event, name[: -len(".txt")])] = rows
+    return out
+
+
+def jpeg_bytes(bgr: np.ndarray) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(bgr[:, :, ::-1])).save(buf, format="JPEG", quality=92)
+    return buf.getvalue()
+
+
+def write_label_tree(root: str, ds) -> str:
+    """The images of an in-memory WiderFaceDataset as PNGs under
+    root/images/, and root/label.txt in the reference's format (`# path`,
+    then per face x y w h and five landmarks as x y visibility)."""
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    lines = []
+    for i, (img, anno) in enumerate(zip(ds.images, ds.annos)):
+        Image.fromarray(img).save(os.path.join(root, "images", f"{i}.png"), compress_level=1)
+        lines.append(f"# {i}.png")
+        for r in anno:
+            lm = " ".join(f"{r[4 + 2 * p]:.2f} {r[5 + 2 * p]:.2f} {0.0 if r[14] > 0 else -1.0}" for p in range(5))
+            lines.append(f"{r[0]:.2f} {r[1]:.2f} {r[2] - r[0]:.2f} {r[3] - r[1]:.2f} {lm} 1.0")
+    path = os.path.join(root, "label.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def rows_err(got: np.ndarray, want: np.ndarray) -> float:
+    """Largest distance from a row of `got` to its nearest row of `want`
+    and back ([N, 15] dets): near-equal scores may order two sets
+    differently."""
+    if len(got) == 0 or len(want) == 0:
+        return 0.0 if len(got) == len(want) else float("inf")
+    d = np.abs(got[:, None, :] - want[None, :, :]).max(-1)
+    return float(max(d.min(1).max(), d.min(0).max()))
+
+
+def post(url: str, body: bytes):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def app_phase(card, dev):
+    """Drive the app surface (module docstring, phase 9). Returns K1's and
+    K2's launches on these paths and the int8 route's largest error."""
+    tmp = tempfile.mkdtemp(prefix="app_")
+    try:
+        return _app_paths(card, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _app_paths(card, dev, tmp):
+    import dataclasses
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from jabd_tpu_torch import aot, configs
+    from jabd_tpu_torch.eval.run_wider import decode_bgr, run_wider_val
+    from jabd_tpu_torch.eval.wider_eval import evaluate_wider
+    from jabd_tpu_torch.models import build_model
+    from jabd_tpu_torch.models import quantize as Q
+    from jabd_tpu_torch.ops import image as I
+    from jabd_tpu_torch.ops import matching_cuda, nms_cuda
+    from jabd_tpu_torch.predict import Predictor
+    from jabd_tpu_torch.serve import BatchingDetector, make_server
+    from jabd_tpu_torch.utils.np_ckpt import load_variables_npz
+    from jabd_tpu_torch.utils.profiling import count_params
+    from jabd_tpu_torch.utils.torch_convert import export_state_dict_auto, save_pth
+
+    k1 = nms_cuda.nms_keep_sorted
+    launches = {}
+    t_phase = time.perf_counter()
+
+    def driven(name, fn, kernel=k1, tag="K1"):
+        reset_counts()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches[name] = (tag, kernel.launches)
+        check(kernel.launches > 0, f"{name} launched {tag}")
+        return out
+
+    size, bsz = APP_SIZE, APP_BATCH
+    dv = ["--device", dev.type]
+    rng = np.random.default_rng(9)
+
+    # (a) Reference .pth names and the CLI on the trained golden fixture.
+    t0 = time.perf_counter()
+    gname = "retinaface_mnet025"
+    gcfg = configs.get_model_config(gname)
+    gstate = load_variables_npz(os.path.join(GOLDEN_DIR, "ckpt_mnet025_96.npz"),
+                                build_model(gcfg, device="cpu").state_dict())
+    gpth = os.path.join(tmp, "golden.pth")
+    gsd = export_state_dict_auto(gstate, gcfg)
+    save_pth(gsd, gpth)
+    golden = dict(np.load(os.path.join(GOLDEN_DIR, "golden.npz")))
+    stems = sorted(k[len("dets_"):] for k in golden if k.startswith("dets_"))
+    val = os.path.join(tmp, "val")
+    os.makedirs(os.path.join(val, "0--Golden"))
+    for s in stems:  # PNGs named .jpg: the evaluator's txt reader strips only that extension
+        shutil.copy(os.path.join(GOLDEN_DIR, "images", s + ".png"), os.path.join(val, "0--Golden", s + ".jpg"))
+    dumps = os.path.join(tmp, "dumps")
+    driven("cli map-txt", lambda: run_cli(["map-txt", "--weights", gpth, "--model", gname, "--input-size", 96,
+                                           "--confidence", 0.5, "--batch-size", 3, "--val-dir", val,
+                                           "--out", dumps, *dv]))
+    gt = write_gt_mats(os.path.join(tmp, "golden_gt"), {"0--Golden": {s: golden["gt_" + s] for s in stems}})
+    aps = last_json(run_cli(["eval", "--pred-dir", dumps, "--gt-dir", gt]))
+    # The in-process twin at the PredictConfig the CLI builds (its
+    # defaults: top 5000, 750 detections; the preset's dtype, folded).
+    pcfg_cli = configs.PredictConfig(confidence=0.5, nms_iou=0.3, input_shape=(96, 96))
+    ref_pred = Predictor(gcfg, gstate, pcfg_cli, device=dev)
+    source = {("0--Golden", s + ".jpg"): decode_bgr(os.path.join(val, "0--Golden", s + ".jpg")) for s in stems}
+    want = run_wider_val(ref_pred, source, batch_size=3)
+    got = read_dumps(dumps)
+    box_err = score_err = 0.0
+    for s in stems:
+        g, w = got[("0--Golden", s)], want["0--Golden"][s]
+        check(g.shape == w.shape, f"map-txt {s}: {len(g)} rows, in-process sweep {len(w)}")
+        box_err = max(box_err, float(np.abs(g[:, :4] - w[:, :4]).max(initial=0.0)))
+        score_err = max(score_err, float(np.abs(g[:, 4] - w[:, 4]).max(initial=0.0)))
+    # The dumps print boxes to 1e-3 px and scores to 1e-5.
+    check(box_err <= 1e-3 and score_err <= 1e-5, "cli map-txt dumps == the in-process sweep's")
+    raw_counts = [int(len(golden["dets_" + s])) for s in stems]
+    # Whether golden.npz's cuts (top 64 candidates, 32 detections) bind:
+    # candidates over the confidence, and detections, per image.
+    n_cand = []
+    for s in stems:
+        x = torch.from_numpy(I.serving_front_end(source[("0--Golden", s + ".jpg")], (96, 96))[None]).to(dev)
+        with torch.inference_mode():
+            n_cand.append(int((ref_pred.model(x.permute(0, 3, 1, 2))[1][0, :, 1] >= 0.5).sum()))
+    cut_bind = (max(n_cand) > GOLDEN_PCFG["pre_nms_topk"]
+                or max(len(got[("0--Golden", s)]) for s in stems) > GOLDEN_PCFG["max_detections"])
+    ap_diff = float(np.abs(np.asarray([aps[k] for k in ("easy", "medium", "hard")]) - golden["aps"]).max())
+    cut_bind = any(n >= GOLDEN_PCFG["max_detections"] for n in raw_counts)
+    print(f"[app] (a) golden fixture as a reference-named .pth ({len(gsd)} "
+          f"tensors) -> cli map-txt ({gname}, {gcfg.compute_dtype}, 96x96, batch 3) -> cli eval: rows "
+          f"{[len(got[('0--Golden', s)]) for s in stems]} (golden.npz {raw_counts}), against the in-process "
+          f"sweep max box err {box_err:.3e} px, score err {score_err:.3e} (bounds 1e-3, 1e-5: the dump's "
+          f"digits); APs {[aps[k] for k in ('easy', 'medium', 'hard')]} beside golden.npz "
+          f"{golden['aps'].tolist()}, max diff {ap_diff:.3e} (golden.npz: float32, top "
+          f"{GOLDEN_PCFG['pre_nms_topk']}, {GOLDEN_PCFG['max_detections']} dets; the CLI: the preset's "
+          f"{gcfg.compute_dtype}, top 5000, 750 dets; candidates over the confidence {n_cand}: the "
+          f"fixture's cuts {'bind' if cut_bind else 'do not bind'} on these images)")
+    check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in aps.values()), "cli eval APs in [0, 1]")
+    img0 = os.path.join(val, "0--Golden", stems[0] + ".jpg")
+    sub = subprocess.run(
+        [sys.executable, "-m", "jabd_tpu_torch.cli", "predict", "--weights", gpth, "--model", gname,
+         "--input-size", "96", "--image", img0, "--out", os.path.join(tmp, "sub.png"), *dv],
+        capture_output=True, text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    check(sub.returncode == 0, f"python3 -m jabd_tpu_torch.cli predict exits 0: {sub.stderr[-500:]}")
+    n_sub = int(sub.stdout.split(" faces")[0].split()[-1])
+    n_ref = len(ref_pred.detect_image(decode_bgr(img0)))
+    print(f"[app] (a) python3 -m jabd_tpu_torch.cli predict (a subprocess): {n_sub} faces, in-process "
+          f"detect_image {n_ref}")
+    check(n_sub == n_ref, "subprocess cli predict count == detect_image's")
+
+    preset = configs.get_model_config("jabd_flagship")
+    cfg32 = dataclasses.replace(preset, compute_dtype="float32")
+    state = seeded_state_dict(preset, seed=3)
+    fpth = os.path.join(tmp, "flagship.pth")
+    save_pth(export_state_dict_auto(state, preset), fpth)
+    frame = smooth_image(rng, 480, 640)[:, :, ::-1].copy()  # BGR
+    fimg = os.path.join(tmp, "frame.png")
+    Image.fromarray(frame[:, :, ::-1]).save(fimg)
+    out = driven("cli predict", lambda: run_cli(["predict", "--weights", fpth, "--model", "jabd_flagship",
+                                                 "--input-size", size, "--image", fimg,
+                                                 "--out", os.path.join(tmp, "drawn.png"), *dv]))
+    n_cli = int(out.split(" faces")[0].split()[-1])
+    pcfg = configs.PredictConfig(confidence=0.5, nms_iou=0.3, input_shape=(size, size))
+    p16 = Predictor(preset, state, pcfg, device=dev)
+    n_live = len(p16.detect_image(frame))
+    print(f"[app] (a) cli predict jabd_flagship {preset.compute_dtype} {size}x{size} from a seeded .pth: "
+          f"{n_cli} faces, in-process detect_image {n_live} ({time.perf_counter() - t0:.1f} s for (a))")
+    check(n_cli == n_live, "cli predict count == detect_image's")
+
+    # (c) The artifact: bf16 flagship, batch 8, loaded in a fresh
+    # interpreter that imports aot.py only.
+    t0 = time.perf_counter()
+    art = os.path.join(tmp, "art16")
+    out = run_cli(["export", "--weights", fpth, "--model", "jabd_flagship", "--input-size", size,
+                   "--batch-size", bsz, "--out", art, "--platforms", dev.type, *dv])
+    art_bytes = last_json(out)["bytes"]
+    t_export = time.perf_counter() - t0
+    xb = rng.normal(0, 50, (bsz, size, size, 3)).astype(np.float32)
+    np.save(os.path.join(tmp, "xb.npy"), xb)
+    code = (
+        "import json, sys, numpy as np, torch\n"
+        "from jabd_tpu_torch import aot\n"
+        "from jabd_tpu_torch.ops import nms_cuda\n"
+        f"a = aot.load_exported({art!r}, device={dev.type!r})\n"
+        f"d, v = a.detect_preprocessed(np.load({os.path.join(tmp, 'xb.npy')!r}))\n"
+        f"np.savez({os.path.join(tmp, 'aot_out.npz')!r}, d=d.float().cpu().numpy(), v=v.cpu().numpy())\n"
+        "print(json.dumps({'models_imported': 'jabd_tpu_torch.models' in sys.modules,\n"
+        "                  'predict_imported': 'jabd_tpu_torch.predict' in sys.modules,\n"
+        "                  'k1': nms_cuda.nms_keep_sorted.launches}))\n"
+    )
+    sub = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(sub.returncode == 0, f"fresh-interpreter artifact load: {sub.stderr[-800:]}")
+    fresh = last_json(sub.stdout)
+    with np.load(os.path.join(tmp, "aot_out.npz")) as z:
+        d_aot, v_aot = z["d"], z["v"]
+    d_live, v_live = (t.cpu().numpy() for t in p16.detect_preprocessed(xb))
+    det_err = float(np.abs(d_aot - d_live)[v_live].max(initial=0.0))
+    print(f"[app] (c) export jabd_flagship bf16 batch {bsz} {size}x{size}: {t_export:.1f} s, bytes {art_bytes}; "
+          f"fresh interpreter (aot.py only): models imported {fresh['models_imported']}, predict imported "
+          f"{fresh['predict_imported']}, K1 launches {fresh['k1']}; valid masks equal "
+          f"{bool(np.array_equal(v_aot, v_live))} ({int(v_live.sum())} dets), max abs det err {det_err:.3e} "
+          f"(bound {APP_DET_TOL}, normalized coords)")
+    check(not fresh["models_imported"] and not fresh["predict_imported"], "artifact loads without model code")
+    check(fresh["k1"] > 0, "the loaded artifact launched K1")
+    check(np.array_equal(v_aot, v_live) and det_err <= APP_DET_TOL, "artifact == live Predictor")
+    launches["artifact (fresh interpreter)"] = ("K1", fresh["k1"])
+
+    # (b) The daemon: float32 flagship (TF32 off) behind make_server (what
+    # `cli serve` starts), 16 concurrent JPEG POSTs; then one artifact.
+    t0 = time.perf_counter()
+    p32 = Predictor(cfg32, state, pcfg, device=dev)
+    frames = [smooth_image(rng, int(h), int(w))[:, :, ::-1].copy()
+              for h, w in zip(rng.integers(360, 720, 16), rng.integers(480, 960, 16))]
+    bodies = [jpeg_bytes(f) for f in frames]
+    decoded = [decode_bgr(b) for b in bodies]
+    det = BatchingDetector(p32, batch_size=bsz, max_wait_ms=50.0)
+    srv = make_server(det, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        det.detect(decoded[0])  # warm-up: cuDNN, allocator
+        before = det.stats()
+
+        def burst():
+            with ThreadPoolExecutor(16) as pool:
+                return list(pool.map(lambda b: post(url + "/detect", b), bodies))
+
+        t1 = time.perf_counter()
+        answers = driven("daemon POST /detect", burst)
+        wall = time.perf_counter() - t1
+        stats = json.loads(urllib.request.urlopen(url + "/healthz", timeout=60).read())
+        stats["requests"] -= before["requests"]
+        stats["batches"] -= before["batches"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        det.close()
+    worst = 0.0
+    for ans, img in zip(answers, decoded):
+        ref = p32.detect_image(img)
+        got = np.asarray(ans["faces"], np.float64).reshape(-1, 15)
+        check(len(got) == len(ref), f"daemon answer has {len(got)} faces, detect_image {len(ref)}")
+        worst = max(worst, rows_err(got, ref))
+    print(f"[app] (b) daemon jabd_flagship f32 {size}x{size} batch {bsz}: 16 concurrent POSTs in {wall * 1000:.1f} ms "
+          f"(host clock), healthz {stats}, K1 launches {launches['daemon POST /detect'][1]}; faces "
+          f"{[a['count'] for a in answers]}; max abs err against detect_image {worst:.3e} px (bound "
+          f"{APP_DET_TOL}) [{card}]")
+    check(worst <= APP_DET_TOL, "daemon answers == detect_image")
+    check(stats["requests"] == 16 and stats["batches"] >= 2, "healthz: 16 requests in at least 2 batches")
+    check(launches["daemon POST /detect"][1] >= stats["batches"], "K1 launched for every batch")
+    # The burst's host stages, one at a time on this thread.
+    t1 = time.perf_counter()
+    for b in bodies:
+        decode_bgr(b)
+    dec_ms = (time.perf_counter() - t1) * 1000 / len(bodies)
+    t1 = time.perf_counter()
+    fronts = [I.serving_front_end(img, (size, size)) for img in decoded]
+    fe_ms = (time.perf_counter() - t1) * 1000 / len(bodies)
+
+    def batch_host_to_host():
+        d, v = p32.detect_preprocessed(np.stack(fronts[:bsz]))
+        return d.cpu(), v.cpu()
+
+    batch_host_to_host()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        batch_host_to_host()
+    b_ms = (time.perf_counter() - t1) * 1000 / 3
+    print(f"[app] (b) the burst's stages, host clock: JPEG decode {dec_ms:.1f} ms a request, letterbox + means "
+          f"{fe_ms:.1f} ms a request (the collector runs them one by one), f32 batch of {bsz} host->host "
+          f"{b_ms:.1f} ms [{card}]")
+    aot16 = aot.load_exported(art, device=dev)
+    det = BatchingDetector(aot16, batch_size=bsz, max_wait_ms=5.0)
+    srv = make_server(det, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        ans = driven("daemon --exported", lambda: post(f"http://127.0.0.1:{srv.server_address[1]}/detect", bodies[0]))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        det.close()
+    ref = aot16.detect_image(decoded[0])
+    err = rows_err(np.asarray(ans["faces"], np.float64).reshape(-1, 15), ref)
+    print(f"[app] (b) daemon over the artifact: {ans['count']} faces, AotDetector.detect_image {len(ref)}, "
+          f"max abs err {err:.3e} px ({time.perf_counter() - t0:.1f} s for (b))")
+    check(ans["count"] == len(ref) and err <= APP_DET_TOL, "daemon --exported == AotDetector.detect_image")
+
+    # (d) int8: the bf16 flagship quantized on 8 seeded frames.
+    t0 = time.perf_counter()
+    p8 = Predictor(preset, state, pcfg, device=dev)
+    calib_frames = [smooth_image(rng, 480, 640)[:, :, ::-1].copy() for _ in range(bsz)]
+    n_sites = p8.quantize_int8(calib_frames)
+    x_cal = torch.from_numpy(np.stack([I.serving_front_end(f, (size, size)) for f in calib_frames])).to(dev)
+    site_err, n_checked = 0, 0
+
+    def hold(module, args):
+        nonlocal site_err, n_checked
+        xq = module.quantize_input(args[0])
+        a = Q.int8_conv_mm(xq, module.kernel_q, module.stride, module.padding, module.groups)
+        b = Q.int8_conv_plain(xq, module.kernel_q, module.stride, module.padding, module.groups)
+        site_err = max(site_err, int((a.long() - b.long()).abs().max()))
+        n_checked += 1
+
+    hooks = [m.register_forward_pre_hook(hold) for m in p8.model.modules() if isinstance(m, Q.QConv)]
+    with torch.inference_mode():
+        heads8 = p8.model(x_cal.permute(0, 3, 1, 2))
+        heads16 = p16.model(x_cal.permute(0, 3, 1, 2))
+    for h in hooks:
+        h.remove()
+    cls_err = float((heads8[1].float() - heads16[1].float()).abs().mean())
+    box_err = float((heads8[0].float() - heads16[0].float()).abs().mean())
+    d8, v8 = driven("int8 Predictor", lambda: p8.detect_preprocessed(xb))
+    x8d = torch.from_numpy(xb).to(dev)
+    b2b = {tag: back_to_back_ms(lambda p=p: p._detect(x8d), iters=20) for tag, p in (("bf16", p16), ("int8", p8))}
+    busy = {tag: device_ms(lambda p=p: p._detect(x8d), iters=5) for tag, p in (("bf16", p16), ("int8", p8))}
+    print(f"[app] (d) int8 jabd_flagship {size}x{size}: {n_sites} sites quantized; int32 conv of the card's "
+          f"_int_mm route against the float64 plain version at {n_checked} sites on the calibration batch: "
+          f"max abs diff {site_err} (must be 0); heads against bf16: cls mean abs {cls_err:.4f} (bound 0.02), "
+          f"box mean abs {box_err:.4f} (bound 0.05); valid dets {v8.sum(1).tolist()}")
+    print(f"[app] (d) batch {bsz}: bf16 back-to-back {b2b['bf16']:.3f} ms/batch, device busy "
+          f"{fmt_ms(busy['bf16'])}; int8 back-to-back {b2b['int8']:.3f} ms/batch, device busy "
+          f"{fmt_ms(busy['int8'])} [{card}]")
+    check(n_checked == n_sites and site_err == 0, "every quantized site's int32 output is bit-equal to the plain version")
+    for tag, p in (("bf16", p16), ("int8", p8)):
+        profile_rows(lambda p=p: p._detect(x8d), 5, "batch", card, f"(d) {tag} bs{bsz} {size}x{size}", phase="[app]")
+    check(cls_err < 0.02 and box_err < 0.05, "int8 heads within the JAX package's bounds of bf16")
+    art8 = os.path.join(tmp, "art8")
+    aot.export_detector(p8, art8, batch_size=bsz)
+    a8 = aot.load_exported(art8, device=dev)
+    d8a, v8a = driven("int8 artifact", lambda: a8.detect_preprocessed(xb))
+    err8 = float((d8a - d8).abs()[v8].max()) if bool(v8.any()) else 0.0
+    print(f"[app] (d) int8 artifact: valid masks equal {bool(torch.equal(v8a, v8))}, max abs det err {err8:.3e} "
+          f"({time.perf_counter() - t0:.1f} s for (d))")
+    check(torch.equal(v8a, v8) and err8 <= APP_DET_TOL, "int8 artifact == live int8")
+
+    # (e) cli train on PNGs with a label.txt, then predict from its checkpoint.
+    t0 = time.perf_counter()
+    tree = os.path.join(tmp, "train")
+    label = write_label_tree(tree, wider_in_memory(APP_TRAIN_BATCH, APP_TRAIN_SIZE, seed=11))
+    ckpt, logs = os.path.join(tmp, "ckpt"), os.path.join(tmp, "logs")
+    driven("cli train", lambda: run_cli(["train", "--model", "jabd_flagship", "--label-txt", label,
+                                         "--batch-size", APP_TRAIN_BATCH, "--input-size", APP_TRAIN_SIZE,
+                                         "--epochs", 1, "--freeze-epochs", 1, "--save-period", 1,
+                                         "--ckpt-dir", ckpt, "--log-dir", logs, *dv]),
+           kernel=matching_cuda.match_front, tag="K2")
+    with open(os.path.join(logs, "metrics.csv")) as f:
+        rows = f.read().splitlines()
+    steps = sorted(os.listdir(ckpt))
+    check(steps == ["1.pt"], f"cli train wrote the step checkpoint: {steps}")
+    check(len(rows) == 2 and np.isfinite(float(rows[1].split(",")[2])), f"metrics.csv rows: {rows}")
+    out = driven("cli predict --weights <ckpt-dir>", lambda: run_cli(
+        ["predict", "--weights", ckpt, "--model", "jabd_flagship", "--input-size", size, "--image", fimg,
+         "--confidence", 0.02, "--out", os.path.join(tmp, "drawn2.png"), *dv]))
+    trained = torch.load(os.path.join(ckpt, "1.pt"), map_location="cpu", weights_only=True)["model"]
+    n_tr = len(Predictor(preset, trained, dataclasses.replace(pcfg, confidence=0.02), device=dev).detect_image(frame))
+    n_cli = int(out.split(" faces")[0].split()[-1])
+    print(f"[app] (e) cli train jabd_flagship bs {APP_TRAIN_BATCH} {APP_TRAIN_SIZE}x{APP_TRAIN_SIZE} one epoch over "
+          f"{APP_TRAIN_BATCH} PNGs: K2 launches {launches['cli train'][1]}, metrics.csv {rows[1:]}, checkpoint "
+          f"{steps}; cli predict --weights <ckpt-dir>: {n_cli} faces, in-process {n_tr} "
+          f"({time.perf_counter() - t0:.1f} s for (e))")
+    check(n_cli == n_tr, "predict from the train checkpoint == in-process")
+
+    # (f) count and fps.
+    t0 = time.perf_counter()
+    cnt = last_json(run_cli(["count", "--model", "jabd_flagship", "--size", size, "--per-layer", *dv]))
+    cpu_params = count_params(build_model(preset, mode="eval", device="cpu"))
+    rows = cnt["per_layer"]
+    check(cnt["params"] == cpu_params, f"count params {cnt['params']} == the CPU model's {cpu_params}")
+    check(sum(r["flops"] for r in rows[:-1]) == rows[-1]["flops"] and rows[-1]["flops"] > 0
+          and sum(r["params"] for r in rows[:-1]) == rows[-1]["params"], "per-layer rows sum to TOTAL")
+    fps = {}
+    if dev.type == "cuda":
+        for method in ("chained", "wall"):
+            fps[method] = last_json(driven(f"cli fps {method}", lambda m=method: run_cli(
+                ["fps", "--model", "jabd_flagship", "--input-size", size, "--image", fimg, "--iters", 30,
+                 "--method", m, *dv])))["fps"]
+    print(f"[app] (f) cli count jabd_flagship {size}: {cnt['params']} params (CPU model {cpu_params}), "
+          f"{cnt['gflops']} conv/matmul GFLOPs, {len(rows) - 2} per-layer rows + (other) sum to TOTAL; "
+          f"cli fps bf16 bs1 {size}x{size}: " + ", ".join(f"{m} {v:.1f} img/s" for m, v in fps.items())
+          + f" ({time.perf_counter() - t0:.1f} s for (f)) [{card}]")
+
+    k1_total = sum(n for tag, n in launches.values() if tag == "K1")
+    k2_total = sum(n for tag, n in launches.values() if tag == "K2")
+    print(f"[app] launches per path {launches}; {time.perf_counter() - t_phase:.1f} s for the phase")
+    return {"k1": k1_total, "k2": k2_total}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1889,13 +2365,16 @@ def main() -> int:
     k2["launches"] += k2_presets["launches"]
     k2["max_abs_err"] = max(k2["max_abs_err"], k2_presets["max_abs_err"])
 
-    # -- phase 9: the kernels line -------------------------------------------
+    # -- phase 9: the app surface -------------------------------------------
+    app = app_phase(card, dev)
+
+    # -- phase 10: the kernels line ------------------------------------------
     kernels = [{
         "name": "nms_keep_sorted",
         "route": "cuda",
         "source": "jabd_tpu_torch/csrc/nms.cu",
         "replaces": "jabd_tpu/ops/nms_pallas.py:42",
-        "launches": main_launches + k1_wider["launches"] + k1_presets["launches"],
+        "launches": main_launches + k1_wider["launches"] + k1_presets["launches"] + app["k1"],
         "max_abs_err": max(worst, k1_wider["max_abs_err"], k1_presets["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1907,7 +2386,7 @@ def main() -> int:
         "route": "cuda",
         "source": "jabd_tpu_torch/csrc/matching.cu",
         "replaces": "jabd_tpu/ops/matching_pallas.py:37",
-        **k2,
+        **{**k2, "launches": k2["launches"] + app["k2"]},
         # No single torch call computes the front half (per-prior best GT
         # and per-GT best prior over the IoU matrix).
         "library_ms": None,

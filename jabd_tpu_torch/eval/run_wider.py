@@ -36,13 +36,19 @@ _SRC_CAP = 2048
 Source = Union[str, Mapping[Tuple[str, str], np.ndarray]]
 
 
-def decode_bgr(path: str) -> np.ndarray:
+def decode_bgr(source: Union[str, bytes]) -> np.ndarray:
     """What `cv2.imread(path)` gives, without cv2: uint8 [H, W, 3] in BGR
-    order with the EXIF orientation applied. Uses PIL, imported here;
-    raises ImportError where PIL is missing."""
+    order with the EXIF orientation applied, from a path or from the
+    encoded bytes themselves (`cv2.imdecode`'s case). Uses PIL, imported
+    here; raises ImportError where PIL is missing and PIL's
+    UnidentifiedImageError for bytes it cannot decode."""
+    import io
+
     from PIL import Image, ImageOps
 
-    with Image.open(path) as im:
+    if isinstance(source, (bytes, bytearray, memoryview)):
+        source = io.BytesIO(source)
+    with Image.open(source) as im:
         rgb = np.asarray(ImageOps.exif_transpose(im).convert("RGB"))
     return np.ascontiguousarray(rgb[:, :, ::-1])
 

@@ -124,7 +124,11 @@ class ConvBN(nn.Module):
     """Conv2d(bias=False) + BatchNorm + activation.
 
     act: 'relu' | 'hswish' | 'none', or a float LeakyReLU slope (slope 0
-    is ReLU, as the reference's LeakyReLU(0) is).
+    is ReLU, as the reference's LeakyReLU(0) is). After `fold_()` the conv
+    carries the BatchNorm as a bias; int8 quantization then replaces it by
+    a `models/quantize.QConv` (the JAX ConvBN's `qconv` branch), and
+    `quantize.calibrate` taps the input with a forward pre-hook (its
+    `quant_calib` sow).
     """
 
     def __init__(

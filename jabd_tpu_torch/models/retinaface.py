@@ -127,7 +127,9 @@ class RetinaFace(nn.Module):
         block, the FPN, each level's SSH. `generator` draws the tap
         dropout's masks in train mode (`dropout_seed`)."""
         cfg = self.cfg
-        x = images.to(self.backbone.stem.conv.weight.dtype)
+        # The heads' dtype is the model's: they stay floating point when
+        # int8 quantization (models/quantize.py) replaces a ConvBN's conv.
+        x = images.to(self.bbox_head1.conv1x1.weight.dtype)
         taps = self.backbone(x, remat)[: cfg.num_levels]
         if cfg.tap_dropout > 0.0 and self.training:
             taps = [tap_dropout(t, cfg.tap_dropout, generator) for t in taps]

@@ -2,7 +2,8 @@
 
 Port of `jabd_tpu/ops/image.py` (`preprocess_input_np`,
 `serving_front_end`, `letterbox_np`, `letterbox_params`,
-`correct_boxes_scale_offset`); `pil_bicubic_resize`, the uint8
+`correct_boxes_scale_offset`, and `undo_letterbox_pixels` of
+`jabd_tpu/predict.py`); `pil_bicubic_resize`, the uint8
 `PIL.Image.resize(..., Image.BICUBIC)` that the JAX package's training
 augmentation calls, in numpy; and the training augmentation's HSV jitter
 in cv2's float HSV space (`hsv_jitter`), the one definition that the host
@@ -144,6 +145,30 @@ def serving_front_end(
     image's own dtype, then float and mean subtraction."""
     x = letterbox_np(image, size_wh) if letterbox else resize_np(image, size_wh)
     return preprocess_input_np(x.astype(np.float32))
+
+
+def undo_letterbox_pixels(
+    dets: np.ndarray,
+    input_hw: Tuple[int, int],
+    image_hw: Tuple[int, int],
+    letterbox: bool = True,
+) -> np.ndarray:
+    """Normalized letterboxed dets [N, 15] -> original-image pixels.
+    Mutates and returns `dets`."""
+    if len(dets) == 0:
+        return np.zeros((0, 15), np.float32)
+    ih, iw = image_hw
+    if letterbox:
+        (ox, oy), (sx, sy) = correct_boxes_scale_offset(input_hw, image_hw)
+        dets[:, [0, 2]] = (dets[:, [0, 2]] - ox) * sx
+        dets[:, [1, 3]] = (dets[:, [1, 3]] - oy) * sy
+        dets[:, 5::2] = (dets[:, 5::2] - ox) * sx
+        dets[:, 6::2] = (dets[:, 6::2] - oy) * sy
+    dets[:, [0, 2]] *= iw
+    dets[:, [1, 3]] *= ih
+    dets[:, 5::2] *= iw
+    dets[:, 6::2] *= ih
+    return dets
 
 
 def cubic_resize_np(image: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:

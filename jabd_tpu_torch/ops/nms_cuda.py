@@ -9,6 +9,13 @@ current stream: a suppression bitmask over 64x64 tiles of candidate pairs
 image that applies the greedy rule 64 boxes at a time. Keep masks equal
 the plain version's. `nms_keep_sorted.launches` counts the calls that
 launched them, one per call.
+
+The keep mask is the registered operator `torch.ops.jabd.nms_keep_sorted`
+(`torch.library.custom_op`): the CUDA launch for a tensor on the card, the
+plain version for one on the CPU, and a fake kernel (an empty bool tensor
+shaped like `valid`) for tracing. So `torch.export` (aot.py) records K1 as
+one node of the exported graph, and a loaded artifact launches the kernel
+through the same path as eager code. Importing this module registers it.
 """
 
 from __future__ import annotations
@@ -42,21 +49,9 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def nms_keep_sorted(
-    boxes: torch.Tensor,  # [B, K, 4] float32 corner form, sorted by score
-    valid: torch.Tensor,  # [B, K] bool
-    iou_threshold: float = 0.45,
-    kind: str = "iou",
-    beta1: float = 1.0,
-) -> torch.Tensor:
-    """Exact greedy NMS keep masks [B, K] bool (see ops/nms.py).
-
-    On the card K may be at most `jabd_nms_max_k()` (12,288). The call
-    allocates a scratch bitmask of B * nb * nb * 64 int64 words, nb =
-    ceil(K / 64), from the caching allocator: 25.6 MB at B 8, K 5000."""
-    N.check_kind(kind)
-    if boxes.device.type == "cpu":
-        return N.nms_keep_sorted(boxes, valid, iou_threshold, kind, beta1)
+def _launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, kind: str, beta1: float) -> torch.Tensor:
+    """The two kernels on the card; checks what they take and raises on
+    anything else."""
     if boxes.device.type != "cuda" or valid.device != boxes.device:
         raise ValueError(
             f"boxes on {boxes.device} and valid on {valid.device}: both "
@@ -99,6 +94,35 @@ def nms_keep_sorted(
     with _lock:
         nms_keep_sorted.launches += 1
     return keep
+
+
+@torch.library.custom_op("jabd::nms_keep_sorted", mutates_args=())
+def _keep_op(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, kind: str, beta1: float) -> torch.Tensor:
+    if boxes.device.type == "cpu":
+        return N.nms_keep_sorted(boxes, valid, iou_threshold, kind, beta1)
+    return _launch(boxes, valid, iou_threshold, kind, beta1)
+
+
+@_keep_op.register_fake
+def _keep_fake(boxes, valid, iou_threshold, kind, beta1):
+    return torch.empty_like(valid, dtype=torch.bool)
+
+
+def nms_keep_sorted(
+    boxes: torch.Tensor,  # [B, K, 4] float32 corner form, sorted by score
+    valid: torch.Tensor,  # [B, K] bool
+    iou_threshold: float = 0.45,
+    kind: str = "iou",
+    beta1: float = 1.0,
+) -> torch.Tensor:
+    """Exact greedy NMS keep masks [B, K] bool (see ops/nms.py), through
+    the operator `jabd::nms_keep_sorted`.
+
+    On the card K may be at most `jabd_nms_max_k()` (12,288). The call
+    allocates a scratch bitmask of B * nb * nb * 64 int64 words, nb =
+    ceil(K / 64), from the caching allocator: 25.6 MB at B 8, K 5000."""
+    N.check_kind(kind)
+    return torch.ops.jabd.nms_keep_sorted(boxes, valid, float(iou_threshold), kind, float(beta1))
 
 
 nms_keep_sorted.launches = 0

@@ -2,8 +2,9 @@
 
 Port of `postprocess_outputs`, `detect_batch`, `undo_letterbox_pixels`
 and `Predictor` (`__init__`, `detect_preprocessed`, `detect_images`,
-`detect_image`, `detect_multiscale`, `get_fps`, `get_map_txt_rows`) of
-`jabd_tpu/predict.py`; the JAX Predictor's mesh modes are not here. One
+`detect_image`, `detect_multiscale`, `quantize_int8`, `get_fps`,
+`get_map_txt_rows`) of `jabd_tpu/predict.py`; the JAX Predictor's mesh
+modes wait for the parallelism slice. One
 batch runs on the device as forward -> top-k of the scores -> decode ->
 greedy NMS (the CUDA kernel on the card) -> compaction to fixed
 [B, max_detections, 15] rows plus a valid mask; the host letterboxes
@@ -15,6 +16,7 @@ Detection row layout: [x1, y1, x2, y2, score, 10 landmark coords].
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -29,6 +31,7 @@ from jabd_tpu_torch.ops import boxes as B
 from jabd_tpu_torch.ops import image as I
 from jabd_tpu_torch.ops import nms as N
 from jabd_tpu_torch.ops import nms_cuda
+from jabd_tpu_torch.ops.image import undo_letterbox_pixels
 
 
 def select_candidates(
@@ -92,30 +95,6 @@ def detect_batch(
     """Forward + postprocess of one batch."""
     loc, cls, landm = model(images)
     return postprocess_outputs(loc, cls, landm, anchors, pcfg, variances)
-
-
-def undo_letterbox_pixels(
-    dets: np.ndarray,
-    input_hw: Tuple[int, int],
-    image_hw: Tuple[int, int],
-    letterbox: bool = True,
-) -> np.ndarray:
-    """Normalized letterboxed dets [N, 15] -> original-image pixels.
-    Mutates and returns `dets`."""
-    if len(dets) == 0:
-        return np.zeros((0, 15), np.float32)
-    ih, iw = image_hw
-    if letterbox:
-        (ox, oy), (sx, sy) = I.correct_boxes_scale_offset(input_hw, image_hw)
-        dets[:, [0, 2]] = (dets[:, [0, 2]] - ox) * sx
-        dets[:, [1, 3]] = (dets[:, [1, 3]] - oy) * sy
-        dets[:, 5::2] = (dets[:, 5::2] - ox) * sx
-        dets[:, 6::2] = (dets[:, 6::2] - oy) * sy
-    dets[:, [0, 2]] *= iw
-    dets[:, [1, 3]] *= ih
-    dets[:, 5::2] *= iw
-    dets[:, 6::2] *= ih
-    return dets
 
 
 def rescale_pixels(dets: np.ndarray, sx: float, sy: float) -> np.ndarray:
@@ -265,9 +244,35 @@ class Predictor:
         descending score (a stable sort)."""
         return map_txt_rows(self.detect_image(image))
 
-    def get_fps(self, image: np.ndarray, test_interval: int = 100) -> float:
+    def quantize_int8(self, sample_images, search_clip: bool = False, score_fn=None) -> int:
+        """Switch serving to int8 convs (models/quantize.py): every folded
+        non-depthwise ConvBN runs as an int8 conv. Activation scales are
+        calibrated on `sample_images` ([N, H, W, 3] uint8 or float) put
+        through the serving recipe: letterbox in the sample's own dtype,
+        then float, then mean subtraction. `search_clip` grid-searches a
+        global clip ratio below absmax by end-to-end output error on the
+        same samples, or by `score_fn(quantized_model) -> float` (lower is
+        better) when given. Returns the number of quantized sites; raises
+        ValueError for a Predictor built with fold_bn=False."""
+        from jabd_tpu_torch.models import quantize as Q
+
+        th, tw = self.pcfg.input_shape
+        imgs = np.stack([I.letterbox_np(np.asarray(im), (tw, th)).astype(np.float32) for im in sample_images])
+        x = torch.from_numpy(I.preprocess_input_np(imgs)).to(self.device).permute(0, 3, 1, 2)
+        calib = Q.calibrate(self.model, [x])
+        ratio = 1.0
+        if search_clip:
+            ratio, _ = Q.search_clip_ratio(self.model, calib, [x], score_fn=score_fn)
+        return Q.quantize_model(self.model, calib, clip_ratio=ratio)
+
+    def get_fps(self, image: np.ndarray, test_interval: int = 100, method: str = "chained") -> float:
         """Images per second of the detect graph (forward + postprocess)
-        on one letterboxed image, timed on the card with CUDA events."""
+        on one letterboxed image, on the card. `method="chained"` times
+        `test_interval` back-to-back batches with CUDA events; `"wall"`
+        reads the host clock around the same loop, synchronized before
+        and after (the reference's harness, predict.py:253-333)."""
+        if method not in ("chained", "wall"):
+            raise ValueError(f"method must be 'chained' or 'wall', got {method!r}")
         if self.device.type != "cuda":
             raise RuntimeError(
                 f"get_fps times the card with CUDA events; this Predictor "
@@ -276,6 +281,13 @@ class Predictor:
         th, tw = self.pcfg.input_shape
         x = torch.from_numpy(I.serving_front_end(image, (tw, th))[None]).to(self.device)
         self._detect(x)  # warm-up
+        if method == "wall":
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            for _ in range(test_interval):
+                self._detect(x)
+            torch.cuda.synchronize(self.device)
+            return test_interval / (time.perf_counter() - t0)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

@@ -1,16 +1,31 @@
-"""Dynamic batching over a `Predictor`. Port of `BatchingDetector`
-(jabd_tpu/serve.py).
+"""The serving daemon: dynamic batching over the detect graph behind HTTP.
 
-A collector thread coalesces concurrent single-image requests into
-fixed-size device batches (pad to the batch size), runs them through the
-predictor's detect graph and fans the results back out per request.
-Every request takes the `detect_image` path numerically (letterbox ->
-detect -> letterbox undo), so batching changes latency, never outputs.
-The HTTP front end comes with a later slice.
+Port of `BatchingDetector`, `make_server` and `serve` of
+`jabd_tpu/serve.py`. A collector thread coalesces concurrent single-image
+requests into fixed-size device batches (pad to the batch size), runs them
+through the backend's detect graph (a live `Predictor`, or an artifact
+loaded by `aot.load_exported`: both take `detect_preprocessed`) and fans
+the results back out per request. Every request takes the `detect_image`
+path numerically (letterbox -> detect -> letterbox undo), so batching
+changes latency, never outputs. On the card every batch launches the NMS
+kernel K1, inside the Predictor or inside the artifact's graph.
+
+`serve()` is a stdlib ThreadingHTTPServer speaking JSON:
+
+    POST /detect   image bytes (jpg/png/...) -> {"faces": [[x1, y1, x2, y2,
+                   score, 10 landmark coords], ...], "count": N}
+    GET  /healthz  {"requests": N, "batches": M, "occupancy": ..., ...}
+
+The body is decoded as `cv2.imdecode` decodes it (`eval/run_wider.py::
+decode_bgr`: PIL, EXIF orientation applied, BGR); an undecodable body gets
+400, an unknown path 404. `/identify` (detect, align, embed, name) comes
+with the recognition slice and answers 503 until then; serving over a
+mesh of cards comes with the parallelism slice.
 """
 
 from __future__ import annotations
 
+import json
 import queue
 import threading
 import time
@@ -20,14 +35,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from jabd_tpu_torch.ops import image as I
-from jabd_tpu_torch.predict import undo_letterbox_pixels
 
 
 class BatchingDetector:
     """Coalesce concurrent detect requests into batches of `batch_size`.
 
-    `max_wait_ms` bounds how long the first request of a batch waits for
-    batch-mates."""
+    `backend` is a Predictor or an `aot.AotDetector`; an artifact's batch
+    size must equal `batch_size`, and its input shape and letterbox are
+    the manifest's. `max_wait_ms` bounds how long the first request of a
+    batch waits for batch-mates."""
 
     def __init__(
         self,
@@ -39,10 +55,18 @@ class BatchingDetector:
     ):
         self.backend = backend
         self.batch_size = int(batch_size)
+        aot_batch = getattr(backend, "batch_size", None)
+        if aot_batch is not None and aot_batch != self.batch_size:
+            raise ValueError(
+                f"AOT artifact serves batch {aot_batch}; start the "
+                f"server with --batch-size {aot_batch}"
+            )
         self.max_wait_s = max_wait_ms / 1000.0
-        pcfg = backend.pcfg
-        self.input_shape = tuple(input_shape or pcfg.input_shape)
-        self.letterbox = bool(pcfg.letterbox if letterbox is None else letterbox)
+        pcfg = getattr(backend, "pcfg", None)
+        self.input_shape = tuple(input_shape or (pcfg.input_shape if pcfg else backend.input_shape))
+        self.letterbox = bool(
+            letterbox if letterbox is not None else (pcfg.letterbox if pcfg else backend.letterbox)
+        )
         self._q: "queue.Queue" = queue.Queue()
         self._stats_lock = threading.Lock()
         self.n_requests = 0
@@ -113,7 +137,7 @@ class BatchingDetector:
                 valid_b = valid_b.cpu().numpy()
                 for i, (img, fut) in enumerate(items):
                     fut.set_result(
-                        undo_letterbox_pixels(
+                        I.undo_letterbox_pixels(
                             dets_b[i][valid_b[i]], (th, tw), img.shape[:2],
                             self.letterbox,
                         )
@@ -125,3 +149,75 @@ class BatchingDetector:
             with self._stats_lock:
                 self.n_requests += len(items)
                 self.n_batches += 1
+
+
+# ---------------------------------------------------------------------------
+# HTTP front end (stdlib only)
+# ---------------------------------------------------------------------------
+
+
+def make_server(detector: BatchingDetector, host: str = "127.0.0.1", port: int = 8712):
+    """Build (not start) the ThreadingHTTPServer: its handler threads feed
+    the one BatchingDetector, which forms the device batches. Port 0 takes
+    a free port (`server.server_address[1]`)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from jabd_tpu_torch.eval.run_wider import decode_bgr
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):  # quiet
+            pass
+
+        def _json(self, code, payload):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._json(200, detector.stats())
+            else:
+                self._json(404, {"error": "unknown path"})
+
+        def do_POST(self):
+            if self.path == "/identify":
+                self._json(503, {"error": "the PyTorch port does not have yet: /identify: the recognition slice"})
+                return
+            if self.path != "/detect":
+                self._json(404, {"error": "unknown path"})
+                return
+            raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            try:
+                img = decode_bgr(raw)
+            except (OSError, ValueError):  # PIL's errors for bytes that are no image
+                self._json(400, {"error": "undecodable image"})
+                return
+            try:
+                dets = detector.detect(img)
+            except Exception as e:  # the daemon outlives one failed request
+                self._json(500, {"error": str(e)})
+                return
+            self._json(200, {
+                "faces": [[round(float(v), 3) for v in d] for d in dets],
+                "count": int(len(dets)),
+            })
+
+    return ThreadingHTTPServer((host, port), Handler)
+
+
+def serve(detector: BatchingDetector, host: str = "127.0.0.1", port: int = 8712) -> None:
+    """Serve until interrupted, then stop the detector's collector."""
+    srv = make_server(detector, host, port)
+    print(
+        f"serving on http://{host}:{srv.server_address[1]} "
+        f"(batch {detector.batch_size}, input {detector.input_shape})",
+        flush=True,
+    )
+    try:
+        srv.serve_forever()
+    finally:
+        srv.server_close()
+        detector.close()

@@ -28,6 +28,8 @@ from jabd_tpu_torch.ops import resize as TR
 PORT_MODULES = [
     "jabd_tpu_torch",
     "jabd_tpu_torch._build",
+    "jabd_tpu_torch.aot",
+    "jabd_tpu_torch.cli",
     "jabd_tpu_torch.configs",
     "jabd_tpu_torch.data",
     "jabd_tpu_torch.data.device_augment",
@@ -42,6 +44,7 @@ PORT_MODULES = [
     "jabd_tpu_torch.models.init",
     "jabd_tpu_torch.models.layers",
     "jabd_tpu_torch.models.mobilenet",
+    "jabd_tpu_torch.models.quantize",
     "jabd_tpu_torch.models.resnet",
     "jabd_tpu_torch.models.retinaface",
     "jabd_tpu_torch.ops",
@@ -61,6 +64,8 @@ PORT_MODULES = [
     "jabd_tpu_torch.utils.convert",
     "jabd_tpu_torch.utils.logging",
     "jabd_tpu_torch.utils.np_ckpt",
+    "jabd_tpu_torch.utils.profiling",
+    "jabd_tpu_torch.utils.torch_convert",
 ]
 
 
