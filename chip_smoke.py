@@ -116,7 +116,40 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    the checkpoint directory; (f) `cli count --per-layer` (params equal to
    the CPU model's, rows summing to the total) and `cli fps` by both
    methods.
-10. One JSON line of every kernel of the port: launches on the main paths,
+10. The recognition half (`[recognition]`), each path that detects with
+   every launch count set to 0 and launching K1: (a) the golden fixture
+   (tests/fixtures/golden_recognition): its scenes decoded by `read_png`
+   and aligned by the port, byte-equal to the golden crops; ir_18 at
+   float32 (TF32 off) from the port's copy of the fixture's path-keyed
+   filler (`golden_ir_state_dict`), embeddings and cosine within 1e-4 of
+   golden.npz, with the float64 CPU forward beside them. (b) All 12 IR
+   names at full width from seeded weights with BatchNorm statistics set
+   from their own inputs (`seeded_ir_model`): folded bf16 embeddings at
+   112x112, bs 2, finite and unit-norm; ir_101 and ir_50 at float32 on the
+   card against the port on the CPU (max abs error <= 1e-4, 1 - cosine <=
+   1e-6). (c) `extract_embeddings_tta` of ir_101 with flip TTA, bs 256,
+   float32 and bf16, over 2,048 seeded crops: img/s, a profile (device
+   busy, idle share, top kernels). (d) `FacePipeline.analyze` with the
+   bf16 flagship at 640x640, confidence 0.02, and folded bf16 ir_101
+   (embed_batch 16) on 4 images at WIDER FACE's geometry: K1 launched,
+   crops warped and normalized on the card byte-equal to the CPU's,
+   embeddings equal to `embed_crops` of the host-aligned crops, ms per
+   image for detect / align / embed, the CPU warp and cv2.warpAffine
+   (the JAX package's warp, timed as a reference the port never calls)
+   on the same matrices; a Gallery's matches and npz round trip. (e) `POST /identify` (float32 flagship, TF32 off, confidence 0.5,
+   folded ir_50): 8 concurrent JPEG POSTs against the in-process
+   `IdentityService.analyze` (detections within 5e-3 px, embeddings within
+   1e-5), K1 per batch, /healthz counts, and 503 without an embedder. (f)
+   `cli identify` over a PIL-written gallery tree, then from its npz;
+   `recognition.cli export` of folded ir_50 (bs 256) loaded in a fresh
+   interpreter that imports aot.py only, equal to the live model;
+   `--embed-quantize int8` (every int8 site's `_int_mm` int32 output
+   bit-equal to the float64 plain version, `fc` included; cosine to the
+   folded float32 model > 0.98; bf16 and int8 times) and `cli identify`
+   with it; `recognition.cli verify` over a seeded lfw.bin of 600 pairs of
+   PIL-written JPEGs, `tinyface`, `extract --partitions 4` and `ijbs` over
+   seeded synthetic trees.
+11. One JSON line of every kernel of the port: launches on the main paths,
    error against the plain version, times and bound.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
@@ -126,6 +159,7 @@ every phase passed. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import collections
+import copy
 import json
 import os
 import shutil
@@ -734,6 +768,46 @@ def read_png(path: str) -> np.ndarray:
         out[y] = cur
         prev = cur
     return np.ascontiguousarray(out.reshape(h, w, 3)[:, :, ::-1])
+
+
+def golden_ir_state_dict(arch: str = "ir_18"):
+    """The port's copy of the path-keyed filler of
+    scripts/make_recognition_golden.py::deterministic_variables: each flax
+    leaf from a numpy Generator seeded by the crc32 of its `keystr` path
+    ("['params']['stage1_block0']['conv1']['kernel']"): kernels fan-in
+    normal in the flax layout, BatchNorm scale 1 / bias 0 / mean 0 / var 1,
+    PReLU alpha 0.25, biases 0. Returns the port's state dict."""
+    import zlib
+
+    from jabd_tpu_torch.recognition import build_model
+    from jabd_tpu_torch.utils.convert import flax_from_state_dict, state_dict_from_flax
+
+    template = flax_from_state_dict(build_model(arch, device="cpu").state_dict())
+
+    def fill(tree, path):
+        out = {}
+        for key, leaf in tree.items():
+            p = path + (key,)
+            if isinstance(leaf, dict):
+                out[key] = fill(leaf, p)
+                continue
+            name = "".join(f"['{k}']" for k in p)
+            shape = leaf.shape
+            if p[0] == "batch_stats":
+                v = np.zeros(shape) if key == "mean" else np.ones(shape)
+            elif key == "scale":
+                v = np.ones(shape)
+            elif key == "bias":
+                v = np.zeros(shape)
+            elif key == "alpha":
+                v = np.full(shape, 0.25)
+            else:
+                fan_in = int(np.prod(shape[:-1])) or 1
+                v = np.random.default_rng(zlib.crc32(name.encode())).standard_normal(shape) / np.sqrt(fan_in)
+            out[key] = v.astype(np.float32)
+        return out
+
+    return state_dict_from_flax(fill(template, ()))
 
 
 def smooth_image(rng, h: int, w: int) -> np.ndarray:
@@ -2138,6 +2212,610 @@ def _app_paths(card, dev, tmp):
     return {"k1": k1_total, "k2": k2_total}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the recognition half
+# ---------------------------------------------------------------------------
+
+REC_GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "golden_recognition")
+REC_ARCHES = ("ir_18", "ir_34", "ir_50", "ir_101", "ir_152", "ir_200",
+              "ir_se_18", "ir_se_34", "ir_se_50", "ir_se_101", "ir_se_152", "ir_se_200")
+REC_F32_ARCHES = ("ir_101", "ir_50")  # AdaFace's headline backbone, the CLI default
+REC_EXTRACT_N, REC_EXTRACT_BS = 2048, 256
+REC_DET_SIZE, REC_IMAGES, REC_EMBED_BATCH = 640, 4, 16
+REC_SERVE_N = 8
+REC_EXPORT_BS = 256
+REC_VERIFY_PAIRS = 600
+REC_PIPE_ARCH, REC_SERVE_ARCH = "ir_101", "ir_50"
+# Card float32 (TF32 off) against the CPU, unit-norm embeddings: the max
+# abs error and 1 - the smallest per-row cosine.
+REC_F32_TOL, REC_COS_TOL = 1e-4, 1e-6
+
+
+def seeded_ir_model(name: str, seed: int, dev, calib):
+    """IR backbone `name` on `dev` with seeded random weights (a
+    torch.Generator on `dev`): conv and fc weights N(0, 1/fan_in), fc bias
+    N(0, 0.1^2), BatchNorm scale 1 + N(0, 0.1^2) and shift N(0, 0.1^2),
+    PReLU alpha U(0.1, 0.4); then every BatchNorm's statistics set from its
+    own input over the NCHW batch `calib` (features_bn's too), so the
+    residual stream stays O(1) at 200 layers."""
+    from jabd_tpu_torch.recognition import build_model
+    from jabd_tpu_torch.recognition.net import PReLU
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = build_model(name, device=dev)
+
+    def randn(t):
+        return torch.randn(t.shape, generator=g, device=dev)
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                m.weight.copy_(randn(m.weight) * m.weight[0].numel() ** -0.5)
+                if m.bias is not None:
+                    m.bias.copy_(0.1 * randn(m.bias))
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(1 + 0.1 * randn(m.weight))
+                m.bias.copy_(0.1 * randn(m.bias))
+            elif isinstance(m, PReLU):
+                m.alpha.copy_(0.1 + 0.3 * torch.rand(m.alpha.shape, generator=g, device=dev))
+
+    def take(m, args):
+        x = args[0].float()
+        dims = (0,) if x.dim() == 2 else (0, 2, 3)
+        m.running_mean.copy_(x.mean(dims))
+        m.running_var.copy_(x.var(dims, unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(take) for m in model.modules()
+             if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d))]
+    with torch.no_grad():
+        model(calib)
+    for h in hooks:
+        h.remove()
+    return model
+
+
+def emb_errors(got: torch.Tensor, want: torch.Tensor):
+    """(max abs error, 1 - smallest per-row cosine) of [N, D] embeddings."""
+    got, want = got.double().cpu(), want.double().cpu()
+    cos = (got * want).sum(1) / (got.norm(dim=1) * want.norm(dim=1))
+    return float((got - want).abs().max()), float(1 - cos.min())
+
+
+def seeded_faces(rng, n: int, size: int = 112) -> np.ndarray:
+    """[n, size, size, 3] uint8 smooth seeded 'faces' (BGR)."""
+    return np.stack([smooth_image(rng, size, size) for _ in range(n)])
+
+
+def write_ijbs_tree(root: str, rng) -> list:
+    """A miniature IJB-S cs6 protocol directory in the shape of
+    tests/test_lq_protocols.py's `ijbs_proto_tree` (6 subjects, 5 videos,
+    UAV probes, split galleries), with every aligned crop written as a PNG
+    under root/crops. Returns the crops' paths."""
+    from PIL import Image
+
+    g = os.path.join(root, "galleries")
+    os.makedirs(g)
+    pairs = [(1, "videos/100.mp4"), (2, "videos/100.mp4"), (3, "videos/101.mp4"), (4, "videos/102.mp4"),
+             (5, "videos/103.mp4"), (6, "videos/104.mp4"), (2, "videos/105.mp4")]
+    meta = ["subject_id,media"] + [f"{s},{v}" for s, v in pairs] + ["4,img/900.png"]
+    files = {
+        "cs6_metadata.csv": meta,
+        "cs6_surveillance_to_single-booking_probe.csv": ["videos"] + [f"videos/10{i}.mp4" for i in range(5)],
+        "cs6_surveillance_to_surveillance_probe.csv": ["videos"] + [f"videos/10{i}.mp4" for i in range(6)],
+        "cs6_uav_to_single-booking_probe.csv": ["media", "videos/101.mp4", "img/900.png"],
+    }
+
+    def gallery(rows):
+        return ["idx,subject_id,media"] + [f"{i},{s},{m}" for i, (s, m) in enumerate(rows)]
+
+    files["galleries/cs6_surveillance_to_single_g1.csv"] = gallery([(s, f"img/s{s}.png") for s in (1, 2, 3)])
+    files["galleries/cs6_surveillance_to_single_g2.csv"] = gallery([(s, f"img/s{s}.png") for s in (4, 5, 6)])
+    files["galleries/cs6_surveillance_to_booking_g1.csv"] = gallery(
+        [(s, f"img/b{s}_{k}.png") for s in (1, 2, 3) for k in (0, 1)])
+    files["galleries/cs6_surveillance_to_booking_g2.csv"] = gallery(
+        [(s, f"img/b{s}_{k}.png") for s in (4, 5, 6) for k in (0, 1)])
+    files["galleries/cs6_surveillance_to_surveillance_g1.csv"] = gallery(
+        [(s, v) for s, v in pairs if s <= 3 and v != "videos/105.mp4"])
+    files["galleries/cs6_surveillance_to_surveillance_g2.csv"] = gallery([(s, v) for s, v in pairs if s > 3])
+    for name, lines in files.items():
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    names = [f"{s}/videos_{v.split('/')[1].split('.')[0]}_f{k}.png" for s, v in pairs for k in range(2)]
+    names += [f"{s}/img_{n}.png" for s in range(1, 7) for n in (f"s{s}", f"b{s}_0", f"b{s}_1")]
+    names.append("4/img_900.png")
+    paths = []
+    for n in names:
+        p = os.path.join(root, "crops", n)
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        Image.fromarray(smooth_image(rng, 112, 112)).save(p)
+        paths.append(p)
+    return paths
+
+
+def write_tinyface_tree(root: str, rng, n_ids: int = 8) -> None:
+    """A TinyFace layout: the two protocol .mat files (a cell array of
+    (image name, subject id) rows each), probe, gallery and distractor
+    PNGs."""
+    import scipy.io as sio
+    from PIL import Image
+
+    align = os.path.join(root, "aligned_pad_0.1_pad_high")
+    lists = {}
+    for sub, tag in (("Probe", "p"), ("Gallery_Match", "g"), ("Gallery_Distractor", "d")):
+        os.makedirs(os.path.join(align, sub))
+        lists[sub] = [f"{i}_{tag}.png" for i in range(n_ids)]
+        for n in lists[sub]:
+            Image.fromarray(smooth_image(rng, 112, 112)).save(os.path.join(align, sub, n))
+    mat_dir = os.path.join(root, "tinyface", "Testing_Set")
+    os.makedirs(mat_dir)
+    for key, sub, fname in (("probe_set", "Probe", "probe_img_ID_pairs.mat"),
+                            ("gallery_set", "Gallery_Match", "gallery_match_img_ID_pairs.mat")):
+        cell = np.empty((n_ids, 2), dtype=object)
+        for i, n in enumerate(lists[sub]):
+            cell[i] = n, float(i)
+        sio.savemat(os.path.join(mat_dir, fname), {key: cell})
+
+
+def write_lfw_bin(path: str, rng, n_pairs: int) -> None:
+    """An insightface verification .bin: 2 * n_pairs PIL-written JPEGs of
+    112x112 seeded faces and the issame list."""
+    import pickle
+
+    bins = [jpeg_bytes(smooth_image(rng, 112, 112)) for _ in range(2 * n_pairs)]
+    with open(path, "wb") as f:
+        pickle.dump((bins, [bool(b) for b in rng.random(n_pairs) < 0.5]), f)
+
+
+def run_rcli(argv):
+    """recognition.cli.main(argv) in this process; its standard output."""
+    import contextlib
+    import io
+
+    from jabd_tpu_torch.recognition import cli as rcli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rcli.main([str(a) for a in argv])
+    out = buf.getvalue()
+    for line in out.splitlines()[-2:]:
+        print(f"[recognition]   recognition.cli {argv[0]}: {line[:160]}")
+    return out
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def recognition_phase(card, dev, preset, state):
+    """Drive the recognition half (module docstring, phase 10). Returns K1's
+    launches on these paths."""
+    tmp = tempfile.mkdtemp(prefix="rec_")
+    try:
+        return _recognition_paths(card, dev, preset, state, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _recognition_paths(card, dev, preset, state, tmp):
+    import argparse
+    import dataclasses
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from PIL import Image
+
+    from jabd_tpu_torch import configs
+    from jabd_tpu_torch.eval.run_wider import decode_bgr
+    from jabd_tpu_torch.models import quantize as Q
+    from jabd_tpu_torch.ops import nms_cuda
+    from jabd_tpu_torch.pipeline import FacePipeline, Gallery, normalize_crops
+    from jabd_tpu_torch.predict import Predictor
+    from jabd_tpu_torch.recognition import build_model
+    from jabd_tpu_torch.recognition import cli as rcli
+    from jabd_tpu_torch.recognition.align import (
+        ARCFACE_TEMPLATE,
+        align_face,
+        align_from_detections,
+        landmarks_from_detection,
+        similarity_transform,
+    )
+    from jabd_tpu_torch.recognition.fold import fold_ir
+    from jabd_tpu_torch.recognition.train import extract_embeddings_tta
+    from jabd_tpu_torch.serve import BatchingDetector, IdentityService, make_server
+
+    k1 = nms_cuda.nms_keep_sorted
+    launches = {}
+    t_phase = time.perf_counter()
+    dv = ["--device", dev.type]
+    rng = np.random.default_rng(12)
+
+    def driven(name, fn):
+        reset_counts()
+        out = fn()
+        sync(dev)
+        launches[name] = k1.launches
+        check(k1.launches > 0, f"{name} launched K1")
+        return out
+
+    def nchw(x_u8):
+        return torch.from_numpy(normalize_crops(x_u8)).permute(0, 3, 1, 2).to(dev)
+
+    # (a) The golden fixture: align, then ir_18 at float32 (TF32 off).
+    t0 = time.perf_counter()
+    golden = dict(np.load(os.path.join(REC_GOLDEN_DIR, "golden.npz")))
+    crops, n_diff = [], 0
+    for stem in ("scene_0", "scene_1"):
+        scene = read_png(os.path.join(REC_GOLDEN_DIR, stem + ".png"))
+        crop = align_face(scene, golden[f"landmarks_{stem}"])
+        n_diff += int((crop != golden[f"crop_{stem}"]).sum())
+        crops.append(crop)
+    crops = np.stack(crops)
+    gmodel = build_model("ir_18", device="cpu")
+    gmodel.load_state_dict(golden_ir_state_dict("ir_18"))
+    g64 = build_model("ir_18", dtype=torch.float64, device="cpu")
+    g64.load_state_dict(gmodel.state_dict())
+    gemb = FacePipeline(None, gmodel.to(dev), device=dev).embed_crops(crops)
+    with torch.no_grad():
+        e64 = g64(torch.from_numpy(normalize_crops(crops)).double().permute(0, 3, 1, 2))[0].numpy()
+    err = float(np.abs(gemb - golden["embeddings"]).max())
+    n = gemb / np.linalg.norm(gemb, axis=1, keepdims=True)
+    cos_err = abs(float(n[0] @ n[1]) - float(golden["cosine_01"]))
+    print(f"[recognition] (a) golden fixture: crops aligned by the port differ from golden.npz in {n_diff} of "
+          f"{crops.size} values; ir_18 f32 (TF32 off) embeddings max abs err {err:.3e} against golden.npz "
+          f"(bound 1e-4), cosine_01 err {cos_err:.3e} (bound 1e-4); against the port's float64 forward on the "
+          f"CPU: card {np.abs(gemb - e64).max():.3e}, golden.npz {np.abs(golden['embeddings'] - e64).max():.3e} "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    check(n_diff == 0, "the port's golden crops are byte-equal to golden.npz")
+    check(err <= 1e-4 and cos_err <= 1e-4, "golden embeddings within 1e-4")
+
+    # (b) Every IR name at full width: bf16 finite and unit-norm; ir_101 and
+    # ir_50 at float32 on the card against the port on the CPU.
+    t0 = time.perf_counter()
+    calib = nchw(seeded_faces(rng, 16))
+    x2 = calib[:2]
+    models = {}
+    for name in REC_ARCHES:
+        model = seeded_ir_model(name, seed=REC_ARCHES.index(name), dev=dev, calib=calib)
+        if name in REC_F32_ARCHES:
+            cpu = build_model(name, device="cpu")
+            cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+            with torch.no_grad():
+                got, want = model(x2)[0], cpu(x2.cpu())[0]
+            abs_err, cos_err = emb_errors(got, want)
+            print(f"[recognition] (b) {name} f32 (TF32 off) bs 2 card vs CPU: max abs err {abs_err:.3e} "
+                  f"(bound {REC_F32_TOL}), 1 - min cosine {cos_err:.3e} (bound {REC_COS_TOL}) [{card}]")
+            check(abs_err <= REC_F32_TOL and cos_err <= REC_COS_TOL, f"{name} card f32 == CPU f32")
+            models[name] = model
+        b16 = fold_ir(copy.deepcopy(model)).to(torch.bfloat16)
+        with torch.no_grad():
+            e16, n16 = b16(x2)
+        nrm = e16.norm(dim=1)
+        params = sum(p.numel() for p in model.parameters())
+        print(f"[recognition] (b) {name}: {params} params, bf16 folded bs 2: finite "
+              f"{bool(torch.isfinite(e16).all())}, |emb| {nrm.tolist()}, norms {n16.flatten().tolist()}")
+        check(bool(torch.isfinite(e16).all()) and float((nrm - 1).abs().max()) < 1e-3,
+              f"{name} bf16 embeddings finite and unit-norm")
+        del b16
+        if name not in REC_F32_ARCHES:
+            del model
+    print(f"[recognition] (b) {len(REC_ARCHES)} IR names built and run in {time.perf_counter() - t0:.1f} s")
+
+    # (c) Extraction: ir_101 flip-TTA over REC_EXTRACT_N seeded crops.
+    t0 = time.perf_counter()
+    ext = models[REC_PIPE_ARCH]
+    faces = normalize_crops(seeded_faces(rng, REC_EXTRACT_N))
+    ext16 = fold_ir(copy.deepcopy(ext)).to(torch.bfloat16)
+    feats = {}
+    for tag, m in (("f32", ext), ("bf16", ext16)):
+        extract_embeddings_tta(m, faces[:REC_EXTRACT_BS], REC_EXTRACT_BS, device=dev)  # warm-up
+        sync(dev)
+        t1 = time.perf_counter()
+        feats[tag] = extract_embeddings_tta(m, faces, REC_EXTRACT_BS, device=dev)[0]
+        sync(dev)
+        wall = time.perf_counter() - t1
+        print(f"[recognition] (c) extract_embeddings_tta {REC_PIPE_ARCH} {tag} bs {REC_EXTRACT_BS} flip TTA over "
+              f"{REC_EXTRACT_N} crops: {wall:.3f} s, {REC_EXTRACT_N / wall:.1f} img/s "
+              f"({2 * REC_EXTRACT_N / wall:.1f} forward img/s), host clock [{card}]")
+        xb = torch.from_numpy(faces[:REC_EXTRACT_BS]).to(dev).permute(0, 3, 1, 2)
+        if dev.type == "cuda":
+            profile_rows(lambda m=m, xb=xb: (m(xb), m(torch.flip(xb, dims=(3,)))), 3, "batch", card,
+                         f"(c) {REC_PIPE_ARCH} {tag} bs {REC_EXTRACT_BS} + flip", phase="[recognition]")
+    abs_err, cos_err = emb_errors(torch.from_numpy(feats["bf16"]), torch.from_numpy(feats["f32"]))
+    print(f"[recognition] (c) bf16 against f32 fused features: max abs err {abs_err:.3e}, 1 - min cosine "
+          f"{cos_err:.3e} ({time.perf_counter() - t0:.1f} s for (c))")
+    check(np.isfinite(feats["bf16"]).all() and cos_err < 0.02, "bf16 extraction close to f32")
+    del ext16
+
+    # (d) The pipeline: flagship bf16 detector, folded ir_101 bf16 embedder.
+    t0 = time.perf_counter()
+    pcfg = configs.PredictConfig(confidence=0.02, input_shape=(REC_DET_SIZE, REC_DET_SIZE))
+    p16 = Predictor(preset, state, pcfg, device=dev)
+    emb16 = fold_ir(copy.deepcopy(ext)).to(torch.bfloat16)
+    pipe = FacePipeline(p16, emb16, embed_batch=REC_EMBED_BATCH, device=dev)
+    images = [img[:, :, ::-1].copy() for img in wider_in_memory(REC_IMAGES, REC_DET_SIZE, seed=13).images]
+    pipe.analyze(images[0])  # warm-up
+    results = [driven(f"analyze image {i}", lambda im=im: pipe.analyze(im)) for i, im in enumerate(images)]
+    split = collections.defaultdict(float)
+    worst, n_crops, crop_diff, norm_diff, cv2_diff, cv2_max = 0.0, 0, 0, 0, 0, 0
+    try:  # OpenCV's warp, the JAX package's, timed as a reference the port never calls
+        import cv2
+    except ImportError:
+        cv2 = None
+    for im, (dets, embs) in zip(images, results):
+        sync(dev)
+        t1 = time.perf_counter()
+        d = p16.detect_image(im)
+        t2 = time.perf_counter()
+        c = align_from_detections(im, d, device=dev)
+        sync(dev)
+        t3 = time.perf_counter()
+        pipe.embed_crops(c)
+        t4 = time.perf_counter()
+        host = align_from_detections(im, d)
+        t5 = time.perf_counter()
+        split["detect"] += (t2 - t1) * 1000 / len(images)
+        split["align"] += (t3 - t2) * 1000 / len(images)
+        split["embed"] += (t4 - t3) * 1000 / len(images)
+        split["host align"] += (t5 - t4) * 1000 / len(images)
+        check(d.shape == dets.shape and embs.shape == (len(dets), 512) and np.isfinite(embs).all(),
+              "analyze: [N, 15] dets and finite [N, 512] embeddings")
+        n_crops += len(d)
+        crop_diff += int((c.cpu().numpy() != host).sum())
+        norm_diff += int((normalize_crops(c).cpu().numpy() != normalize_crops(host)).sum())
+        worst = max(worst, float(np.abs(pipe.embed_crops(host) - embs).max(initial=0.0))
+                    if d.shape == dets.shape else np.inf)
+        if cv2 is not None and len(d):
+            mats = [similarity_transform(landmarks_from_detection(r), ARCFACE_TEMPLATE) for r in d]
+            t6 = time.perf_counter()
+            ref = np.stack([cv2.warpAffine(im, m, (112, 112), flags=cv2.INTER_LINEAR, borderValue=0)
+                            for m in mats])
+            split["cv2 align"] += (time.perf_counter() - t6) * 1000 / len(images)
+            cv2_diff += int((ref != host).sum())
+            cv2_max = max(cv2_max, int(np.abs(ref.astype(np.int16) - host).max()))
+    ref_line = (f"cv2 {cv2.__version__} warpAffine of the same matrices ({cv2.getNumThreads()} threads, a "
+                f"reference the port never calls) {split['cv2 align']:.1f} ms, {cv2_diff} crop values differ "
+                f"(max {cv2_max} grey levels)"
+                if cv2 is not None else "cv2 not installed: its warp not measured")
+    print(f"[recognition] (d) analyze flagship bf16 {REC_DET_SIZE}x{REC_DET_SIZE} conf 0.02 + folded "
+          f"{REC_PIPE_ARCH} bf16 embed_batch {REC_EMBED_BATCH}, {REC_IMAGES} WIDER-geometry images: faces "
+          f"{[len(r[0]) for r in results]}, K1 launches {[launches[f'analyze image {i}'] for i in range(REC_IMAGES)]}; "
+          f"crops warped on the card against the CPU warp: {crop_diff} of {n_crops * 112 * 112 * 3} values "
+          f"differ, normalized {norm_diff}; embeddings against embed_crops on host-aligned crops max abs err "
+          f"{worst:.3e}; ms per image, host clock: detect {split['detect']:.1f}, align on the card "
+          f"{split['align']:.1f}, embed {split['embed']:.1f}; the same warp on the CPU {split['host align']:.1f}, "
+          f"{ref_line} [{card}]")
+    check(crop_diff == 0 and norm_diff == 0, "crops warped and normalized on the card == on the CPU, bytewise")
+    check(worst <= 1e-6, "analyze embeddings == embed_crops of the host-aligned crops")
+    gallery = Gallery()
+    dets0, embs0 = results[0]
+    names = [f"person{i}" for i in range(min(3, len(embs0)))]
+    for name, e in zip(names, embs0):
+        gallery.enroll(name, e)
+    matches = gallery.match(embs0[: len(names)], threshold=0.3)
+    npz = os.path.join(tmp, "gallery.npz")
+    gallery.save(npz)
+    back = Gallery.load(npz)
+    check([m[0] for m in matches] == names and all(abs(m[1] - 1) < 1e-5 for m in matches),
+          "each enrolled face matches its own name at cosine 1")
+    check(back.names == names and np.array_equal(back.matrix, gallery.matrix)
+          and back.match(embs0) == gallery.match(embs0), "gallery npz round trip")
+    print(f"[recognition] (d) gallery of {len(names)}: matches {matches}; npz round trip equal "
+          f"({time.perf_counter() - t0:.1f} s for (d))")
+    del emb16, pipe
+
+    # (e) POST /identify over the float32 flagship (TF32 off) and folded ir_50.
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(preset, compute_dtype="float32")
+    pcfg05 = configs.PredictConfig(confidence=0.5, input_shape=(REC_DET_SIZE, REC_DET_SIZE))
+    p32 = Predictor(cfg32, state, pcfg05, device=dev)
+    ir50 = fold_ir(copy.deepcopy(models[REC_SERVE_ARCH]))
+    identity = IdentityService(FacePipeline(None, ir50, device=dev), gallery=gallery, threshold=0.3)
+    served = []  # (image, detections) of each request, as the handler threads met them
+    analyze = identity.analyze
+    identity.analyze = lambda image, dets: served.append((image, dets)) or analyze(image, dets)
+    frames = [smooth_image(rng, int(h), int(w))[:, :, ::-1].copy()
+              for h, w in zip(rng.integers(360, 720, REC_SERVE_N), rng.integers(480, 960, REC_SERVE_N))]
+    bodies = [jpeg_bytes(f) for f in frames]
+    decoded = [decode_bgr(b) for b in bodies]
+    det = BatchingDetector(p32, batch_size=4, max_wait_ms=50.0)
+    srv = make_server(det, "127.0.0.1", 0, identity=identity)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        post(url + "/identify", bodies[0])  # warm-up
+        before = json.loads(urllib.request.urlopen(url + "/healthz", timeout=60).read())
+        served.clear()
+
+        def burst():
+            with ThreadPoolExecutor(REC_SERVE_N) as pool:
+                return list(pool.map(lambda b: post(url + "/identify", b), bodies))
+
+        t1 = time.perf_counter()
+        answers = driven("daemon POST /identify", burst)
+        wall = time.perf_counter() - t1
+        stats = json.loads(urllib.request.urlopen(url + "/healthz", timeout=60).read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        det.close()
+    identity.analyze = analyze
+    n_req, n_batches = stats["requests"] - before["requests"], stats["batches"] - before["batches"]
+    # Detections: the daemon's batches against detect_image one at a time.
+    # Faces: each answer against analyze() in this process on the very
+    # detections the handler aligned.
+    box_err = emb_err = 0.0
+    check(len(served) == REC_SERVE_N, "every /identify request reached IdentityService")
+    for ans, img in zip(answers, decoded):
+        dets = next(d for im, d in served if im.shape == img.shape and np.array_equal(im, img))
+        box_err = max(box_err, rows_err(dets, p32.detect_image(img)))
+        want = identity.analyze(img, dets)
+        check(ans["count"] == len(want) == len(dets), f"/identify answer has {ans['count']} faces, in-process {len(want)}")
+        for f, w in zip(ans["faces"], want):
+            check(f["box"] == w["box"] and f["name"] == w["name"], "/identify boxes and names == in-process")
+            emb_err = max(emb_err, float(np.abs(np.asarray(f["embedding"]) - w["embedding"]).max()))
+    det0 = BatchingDetector(p32, batch_size=4)
+    srv0 = make_server(det0, "127.0.0.1", 0)
+    threading.Thread(target=srv0.serve_forever, daemon=True).start()
+    try:
+        post(f"http://127.0.0.1:{srv0.server_address[1]}/identify", bodies[0])
+        code = 200
+    except urllib.error.HTTPError as e:
+        code = e.code
+    finally:
+        srv0.shutdown()
+        srv0.server_close()
+        det0.close()
+    print(f"[recognition] (e) daemon POST /identify f32 flagship {REC_DET_SIZE}x{REC_DET_SIZE} conf 0.5 batch 4 + "
+          f"folded {REC_SERVE_ARCH} f32: {REC_SERVE_N} concurrent JPEG POSTs in {wall * 1000:.1f} ms (host clock), "
+          f"faces {[a['count'] for a in answers]}, healthz +{n_req} requests in +{n_batches} batches, K1 launches "
+          f"{launches['daemon POST /identify']}; the daemon's detections against detect_image max abs err "
+          f"{box_err:.3e} px (bound {APP_DET_TOL}); its faces against IdentityService.analyze in this process on "
+          f"the same detections: embeddings max abs err {emb_err:.3e} (bound 1e-5); without an embedder "
+          f"/identify answers {code} ({time.perf_counter() - t0:.1f} s for (e)) [{card}]")
+    check(box_err <= APP_DET_TOL and emb_err <= 1e-5, "/identify answers == in-process IdentityService")
+    check(n_req == REC_SERVE_N and launches["daemon POST /identify"] >= n_batches, "K1 per batch, healthz counts")
+    check(code == 503, "/identify without an embedder answers 503")
+
+    # (f) The CLIs.
+    t0 = time.perf_counter()
+    from jabd_tpu_torch.utils.torch_convert import export_state_dict_auto, save_pth
+
+    fpth = os.path.join(tmp, "flagship.pth")
+    save_pth(export_state_dict_auto(state, preset), fpth)
+    ir50_pt = os.path.join(tmp, "ir50.pt")
+    torch.save({k: v.cpu() for k, v in models[REC_SERVE_ARCH].state_dict().items()}, ir50_pt)
+    gal_dir = os.path.join(tmp, "people")
+    for p, name in enumerate(("ann", "bob")):
+        os.makedirs(os.path.join(gal_dir, name))
+        for k in range(2):
+            Image.fromarray(smooth_image(rng, 480, 640)).save(os.path.join(gal_dir, name, f"{k}.jpg"), quality=92)
+    probe = os.path.join(gal_dir, "ann", "0.jpg")
+    npz = os.path.join(tmp, "people.npz")
+    base = ["identify", "--weights", fpth, "--input-size", REC_DET_SIZE, "--confidence", 0.02, "--arch",
+            REC_SERVE_ARCH, "--ckpt", ir50_pt, "--image", probe, "--gallery", npz, *dv]
+    out1 = driven("cli identify --gallery-dir", lambda: run_cli(base + ["--gallery-dir", gal_dir,
+                                                                        "--out", os.path.join(tmp, "id.png")]))
+    out2 = driven("cli identify --gallery npz", lambda: run_cli(base))
+    rows1 = [json.loads(ln) for ln in out1.splitlines() if ln.startswith("{")]
+    rows2 = [json.loads(ln) for ln in out2.splitlines() if ln.startswith("{")]
+    check(rows1 == rows2 and len(rows1) > 0, "cli identify from the saved npz == the enrolling run")
+    check(Gallery.load(npz).names == ["ann", "bob"] and os.path.exists(os.path.join(tmp, "id.png")),
+          "cli identify wrote the gallery npz and the drawing")
+    named = sum(r["name"] == "ann" for r in rows1)
+    print(f"[recognition] (f) cli identify flagship bf16 {REC_DET_SIZE} + {REC_SERVE_ARCH} (--ckpt a port state "
+          f"dict): {len(rows1)} faces, {named} named ann; K1 launches {launches['cli identify --gallery-dir']} "
+          f"(enrol + identify), {launches['cli identify --gallery npz']} (from the npz)")
+
+    art = os.path.join(tmp, "emb_art")
+    run_rcli(["export", "--arch", REC_SERVE_ARCH, "--ckpt", ir50_pt, "--fold", "--batch-size", REC_EXPORT_BS,
+              "--platforms", dev.type, "--out", art, *dv])
+    xb = normalize_crops(seeded_faces(rng, REC_EXPORT_BS))
+    np.save(os.path.join(tmp, "xb.npy"), xb)
+    code = (
+        "import json, sys, numpy as np, torch\n"
+        "torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False\n"
+        "from jabd_tpu_torch import aot\n"
+        f"a = aot.load_exported({art!r}, device={dev.type!r})\n"
+        f"e, n = a.embed(np.load({os.path.join(tmp, 'xb.npy')!r}))\n"
+        f"np.save({os.path.join(tmp, 'emb.npy')!r}, e.cpu().numpy())\n"
+        "print(json.dumps({'model_code': sorted(m for m in sys.modules if m.startswith(\n"
+        "    ('jabd_tpu_torch.recognition', 'jabd_tpu_torch.models', 'jabd_tpu_torch.predict')))}))\n"
+    )
+    sub = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(sub.returncode == 0, f"fresh-interpreter embedder load: {sub.stderr[-800:]}")
+    fresh = last_json(sub.stdout)
+    live = rcli._load_backbone(argparse.Namespace(arch=REC_SERVE_ARCH, ckpt=ir50_pt, fold=True, quantize="none",
+                                                  device=dev.type))
+    with torch.no_grad():
+        want = live(torch.from_numpy(xb).to(dev).permute(0, 3, 1, 2))[0]
+    aerr, acos = emb_errors(torch.from_numpy(np.load(os.path.join(tmp, "emb.npy"))), want)
+    print(f"[recognition] (f) recognition.cli export folded {REC_SERVE_ARCH} bs {REC_EXPORT_BS}: fresh interpreter "
+          f"(aot.py only) imported model code {fresh['model_code']}; against the live model max abs err "
+          f"{aerr:.3e}, 1 - min cosine {acos:.3e} (bounds 1e-5, 1e-6)")
+    check(not fresh["model_code"] and aerr <= 1e-5 and acos <= 1e-6, "embedder artifact == live model")
+
+    # int8 calibrated on the batch it is held on (the JAX package's test
+    # recipe); the CLI's self-calibration on noise is reported beside it.
+    x_eval = torch.from_numpy(xb[:16]).to(dev).permute(0, 3, 1, 2)
+    q8 = copy.deepcopy(live)
+    Q.quantize_model(q8, Q.calibrate(q8, [x_eval]))
+    q8cli = rcli._load_backbone(argparse.Namespace(arch=REC_SERVE_ARCH, ckpt=ir50_pt, fold=True, quantize="int8",
+                                                   quantize_search=False, device=dev.type))
+    site_err, n_checked = 0, 0
+
+    def hold(module, args):
+        nonlocal site_err, n_checked
+        xq = module.quantize_input(args[0])
+        if isinstance(module, Q.QDense):
+            a, b = Q.int8_matmul_mm(xq, module.kernel_q), Q.int8_matmul_plain(xq, module.kernel_q)
+        else:
+            a = Q.int8_conv_mm(xq, module.kernel_q, module.stride, module.padding, module.groups)
+            b = Q.int8_conv_plain(xq, module.kernel_q, module.stride, module.padding, module.groups)
+        site_err = max(site_err, int((a.long() - b.long()).abs().max()))
+        n_checked += 1
+
+    sites = [m for m in q8.modules() if isinstance(m, (Q.QConv, Q.QDense))]
+    hooks = [m.register_forward_pre_hook(hold) for m in sites]
+    with torch.no_grad():
+        e8 = q8(x_eval)[0]
+    for h in hooks:
+        h.remove()
+    with torch.no_grad():
+        e32 = live(x_eval)[0]
+        e8cli = q8cli(x_eval)[0]
+    cos8 = float(((e8.double() * e32.double()).sum(1)).min())
+    cos8cli = float(((e8cli.double() * e32.double()).sum(1)).min())
+    b16 = copy.deepcopy(live).to(torch.bfloat16)
+    xbig = torch.from_numpy(xb).to(dev).permute(0, 3, 1, 2)
+    times = {}
+    if dev.type == "cuda":
+        times = {tag: back_to_back_ms(lambda m=m: m(xbig), iters=10) for tag, m in (("bf16", b16), ("int8", q8))}
+    print(f"[recognition] (f) --embed-quantize int8 {REC_SERVE_ARCH}: {len(sites)} sites (fc a QDense: "
+          f"{isinstance(q8.fc, Q.QDense)}); _int_mm int32 against the float64 plain version at {n_checked} sites: "
+          f"max abs diff {site_err} (must be 0); min cosine to the folded f32 model {cos8:.5f} (bound 0.98; "
+          f"self-calibrated on noise as the CLI does: {cos8cli:.5f}); "
+          f"bs {REC_EXPORT_BS} back-to-back ms/batch {times} [{card}]")
+    check(n_checked == len(sites) and site_err == 0 and isinstance(q8.fc, Q.QDense),
+          "every int8 site's _int_mm int32 output is bit-equal to the plain version")
+    check(cos8 > 0.98, "int8 embeddings within the JAX package's cosine bound")
+    out = driven("cli identify --embed-quantize int8", lambda: run_cli(base + ["--embed-quantize", "int8"]))
+    check(len([ln for ln in out.splitlines() if ln.startswith("{")]) == len(rows1), "int8 identify: same faces")
+    del q8, q8cli, b16, live
+
+    vdir = os.path.join(tmp, "val")
+    os.makedirs(vdir)
+    write_lfw_bin(os.path.join(vdir, "lfw.bin"), rng, REC_VERIFY_PAIRS)
+    ver = last_json(run_rcli(["verify", "--arch", REC_SERVE_ARCH, "--ckpt", ir50_pt, "--data-dir", vdir, *dv]))
+    check(sorted(ver) == ["lfw", "mean"] and 0.0 <= ver["lfw"]["val_acc"] <= 1.0, "verify accuracy in [0, 1]")
+    tf_root = os.path.join(tmp, "tinyface")
+    write_tinyface_tree(tf_root, rng)
+    tf = last_json(run_rcli(["tinyface", "--arch", REC_SERVE_ARCH, "--ckpt", ir50_pt, "--batch-size", 16,
+                             "--tinyface-root", tf_root, *dv]))
+    check(sorted(tf) == ["rank_1", "rank_20", "rank_5"] and all(0 <= v <= 1 for v in tf.values()), "tinyface ranks")
+    ij_root = os.path.join(tmp, "ijbs")
+    crop_paths = write_ijbs_tree(ij_root, rng)
+    lst = os.path.join(tmp, "list.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(crop_paths) + "\n")
+    feats_dir = os.path.join(tmp, "feats")
+    run_rcli(["extract", "--arch", REC_SERVE_ARCH, "--ckpt", ir50_pt, "--batch-size", 16, "--image-list", lst,
+              "--out-dir", feats_dir, "--partitions", 4, *dv])
+    parts = sorted(n for n in os.listdir(feats_dir) if n.startswith("features_part"))
+    ij = json.loads(run_rcli(["ijbs", "--features", os.path.join(feats_dir, "features.npz"),
+                              "--protocol-dir", ij_root]))
+    check(len(parts) == 4 and len(ij) == 5 and all(0 <= v["rank1"] <= 1 for v in ij.values()), "extract + ijbs")
+    print(f"[recognition] (f) recognition.cli verify ({REC_VERIFY_PAIRS} pairs of PIL-written JPEGs) {ver}; "
+          f"tinyface {tf}; extract {len(crop_paths)} crops in {parts}; ijbs rank1 "
+          f"{ {k: v['rank1'] for k, v in ij.items()} } ({time.perf_counter() - t0:.1f} s for (f))")
+
+    k1_total = sum(launches.values())
+    print(f"[recognition] K1 launches per path {launches}; {time.perf_counter() - t_phase:.1f} s for the phase")
+    return {"launches": k1_total}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2368,13 +3046,16 @@ def main() -> int:
     # -- phase 9: the app surface -------------------------------------------
     app = app_phase(card, dev)
 
-    # -- phase 10: the kernels line ------------------------------------------
+    # -- phase 10: the recognition half --------------------------------------
+    rec = recognition_phase(card, dev, preset, state)
+
+    # -- phase 11: the kernels line ------------------------------------------
     kernels = [{
         "name": "nms_keep_sorted",
         "route": "cuda",
         "source": "jabd_tpu_torch/csrc/nms.cu",
         "replaces": "jabd_tpu/ops/nms_pallas.py:42",
-        "launches": main_launches + k1_wider["launches"] + k1_presets["launches"] + app["k1"],
+        "launches": main_launches + k1_wider["launches"] + k1_presets["launches"] + app["k1"] + rec["launches"],
         "max_abs_err": max(worst, k1_wider["max_abs_err"], k1_presets["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,

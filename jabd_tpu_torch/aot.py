@@ -1,11 +1,12 @@
 """Ahead-of-time serving artifacts (`torch.export`).
 
-Port of `export_detector`, `AotDetector` and `load_exported` of
-`jabd_tpu/aot.py`. The whole detect graph of a Predictor (forward ->
-top-k -> decode -> greedy NMS -> compaction, anchors held as a constant)
-is exported with `torch.export` for one batch size and input shape, and
-saved with its weights; the serving host loads it and calls it, with no
-model code, no preset registry and no trace. Layout:
+Port of `export_detector`, `AotDetector`, `export_embedder`,
+`AotEmbedder` and `load_exported` of `jabd_tpu/aot.py`. The whole detect
+graph of a Predictor (forward -> top-k -> decode -> greedy NMS ->
+compaction, anchors held as a constant), or the embedding graph of an IR
+backbone, is exported with `torch.export` for one batch size and input
+shape, and saved with its weights; the serving host loads it and calls it,
+with no model code, no preset registry and no trace. Layout:
 
     <dir>/graph.pt2       torch.export.save of the program (weights inside)
     <dir>/manifest.json   version, kind, model, batch_size, input_shape,
@@ -19,10 +20,9 @@ side imports this module and that operator's registration only.
 `platforms` names the torch device the graph was exported on, ("cuda",)
 or ("cpu",): an exported graph holds its device in its constants and
 weights, so an artifact runs where it was exported and is refused
-elsewhere. A Predictor switched to int8 (`quantize_int8`) exports its int8
-graph. Embedder artifacts (`export_embedder`, `AotEmbedder`) come with the
-recognition slice, and serving one artifact over several cards with the
-parallelism slice.
+elsewhere. A Predictor switched to int8 (`quantize_int8`), or a folded or
+int8 embedder, exports the graph it runs. Serving one artifact over
+several cards comes with the parallelism slice.
 """
 
 from __future__ import annotations
@@ -144,25 +144,94 @@ class AotDetector:
         return I.undo_letterbox_pixels(dets, (th, tw), image.shape[:2], self.letterbox)
 
 
-def load_exported(out_dir: str, device=None) -> AotDetector:
+class _EmbedGraph(torch.nn.Module):
+    """images [B, S, S, 3] float32 normalized -> (emb [B, 512], norm [B, 1])."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, images):
+        return self.model(images.permute(0, 3, 1, 2))
+
+
+def export_embedder(
+    model,
+    out_dir: str,
+    batch_size: int = 256,
+    image_size: int = 112,
+    platforms: Optional[Sequence[str]] = None,
+    model_name: str = "",
+) -> str:
+    """Export an IR backbone's embedding graph (folded, int8 or neither, in
+    its own dtype) for [batch_size, S, S, 3] float32 normalized inputs into
+    `out_dir`. `platforms` defaults to the model's device type and must
+    equal it. Returns `out_dir`."""
+    dev = next(model.parameters()).device
+    platforms = tuple(platforms or (dev.type,))
+    if platforms != (dev.type,):
+        raise ValueError(
+            f"an artifact runs on the device it was exported on: this model "
+            f"runs on {dev.type!r}, asked for platforms {platforms}"
+        )
+    example = torch.zeros((batch_size, image_size, image_size, 3), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        program = torch.export.export(_EmbedGraph(model.eval()), (example,))
+    program.example_inputs = None
+    os.makedirs(out_dir, exist_ok=True)
+    torch.export.save(program, os.path.join(out_dir, _GRAPH))
+    manifest = {
+        "version": ARTIFACT_VERSION,
+        "kind": "embedder",
+        "model": model_name,
+        "batch_size": batch_size,
+        "input_shape": [image_size, image_size],
+        "platforms": list(platforms),
+    }
+    with open(os.path.join(out_dir, _MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return out_dir
+
+
+class AotEmbedder:
+    """Serving-side embedder driven by an artifact only."""
+
+    def __init__(self, program, manifest: dict, device: torch.device):
+        self._fn = program.module()
+        self.manifest = manifest
+        self.device = device
+        self.batch_size = int(manifest["batch_size"])
+
+    def embed(self, images):
+        """[batch_size, S, S, 3] float32 normalized (numpy or tensor) ->
+        (embeddings [B, 512], norms [B, 1]) as tensors on the device."""
+        if images.shape[0] != self.batch_size:
+            raise ValueError(f"artifact batch is {self.batch_size}, got {images.shape[0]}")
+        x = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+        with torch.no_grad():
+            return self._fn(x)
+
+
+_KINDS = {"detector": AotDetector, "embedder": AotEmbedder}
+
+
+def load_exported(out_dir: str, device=None):
     """Load an artifact directory to run on `device` (the card unless
-    given). Raises ValueError for an artifact of a newer version or one
-    exported for another device type, NotImplementedError for an embedder
-    artifact (the recognition slice)."""
+    given): an AotDetector or an AotEmbedder, by the manifest's kind.
+    Raises ValueError for an artifact of a newer version or an unknown
+    kind, or one exported for another device type."""
     with open(os.path.join(out_dir, _MANIFEST)) as f:
         manifest = json.load(f)
     if manifest["version"] > ARTIFACT_VERSION:
         raise ValueError(
             f"artifact version {manifest['version']} is newer than this loader ({ARTIFACT_VERSION})"
         )
-    if manifest["kind"] != "detector":
-        raise NotImplementedError(
-            f"the PyTorch port does not have yet: {manifest['kind']} artifacts: the recognition slice"
-        )
+    if manifest["kind"] not in _KINDS:
+        raise ValueError(f"unknown artifact kind {manifest['kind']!r}")
     dev = resolve_device(device)
     if dev.type not in manifest["platforms"]:
         raise ValueError(
             f"artifact was exported for {manifest['platforms']}, but it is loaded for {dev.type!r}"
         )
     program = torch.export.load(os.path.join(out_dir, _GRAPH))
-    return AotDetector(program, manifest, dev)
+    return _KINDS[manifest["kind"]](program, manifest, dev)

@@ -1,8 +1,9 @@
 """Post-training int8 quantization of a folded eval model (serving).
 
-Port of `jabd_tpu/models/quantize.py` (`qconv_apply`, `calibrate`,
-`_quantize_site`, `quantize_variables`, `search_clip_ratio`) and of the
-int8 branch of its `ConvBN`. The recipe is the JAX package's:
+Port of `jabd_tpu/models/quantize.py` (`qconv_apply`, `qdense_apply`,
+`calibrate`, `_quantize_site`, `quantize_variables`, `search_clip_ratio`)
+and of the int8 branches of its `ConvBN` and of the IR backbones
+(recognition/net.py). The recipe is the JAX package's:
 
   * It builds on BatchNorm folding (models/fold.py): a folded `ConvBN` is
     a conv with bias. Quantization replaces its `conv` with a `QConv`
@@ -13,8 +14,13 @@ int8 branch of its `ConvBN`. The recipe is the JAX package's:
     bfloat16 preset), so the scales and int8 kernels are bit-equal to the
     JAX package's on the same folded tree.
   * Activations: symmetric per tensor, absmax / 127, the absmax of each
-    `ConvBN` input over sample batches (`calibrate`: forward pre-hooks, the
-    counterpart of the JAX ConvBN's `quant_calib` sow).
+    site's input over sample batches (`calibrate`: forward pre-hooks, the
+    counterpart of the JAX package's `quant_calib` sow). The sites are
+    every `ConvBN` of a detector, and the convs and the projection `fc`
+    of an IR backbone (its `quant_sites()`: the JAX package's flat layout,
+    a folded {kernel, bias} beside its `<name>_absmax`). There a folded
+    conv becomes a `QConv` and `fc` a `QDense` (int8 x int8 -> int32
+    matmul, then dequantization plus bias).
   * Depthwise convs (one input channel per group) stay in floating point,
     as do sites whose input never left 0, as in the JAX package.
 
@@ -32,8 +38,8 @@ XLA; it is no TPU kernel) runs
     held against) as a float64 conv of the int8 values: every partial sum
     is an integer below 127^2 * K < 2^53, so it is exact too.
 
-The recognition slice's `qdense_apply` and the IR backbones' flat layout
-(`_walk`'s first branch) are not here.
+A `QDense` takes the same two routes without the im2col
+(`int8_matmul_mm`, `int8_matmul_plain`).
 """
 
 from __future__ import annotations
@@ -63,6 +69,23 @@ def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
     return F.pad(t, pad)
 
 
+def int8_matmul_plain(x_q, kernel_q) -> torch.Tensor:
+    """int32 x_q [M, K] @ kernel_q [N, K].T as a float64 matmul of the int8
+    values (exact, see the module note)."""
+    return (x_q.double() @ kernel_q.double().t()).to(torch.int32)
+
+
+def int8_matmul_mm(x_q, kernel_q) -> torch.Tensor:
+    """The same int32 matmul through `torch._int_mm` (the card's route),
+    with K and N zero-padded to multiples of 8 and M to at least 17."""
+    m, k = x_q.shape
+    n = kernel_q.shape[0]
+    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+    a = _pad_to(_pad_to(x_q, 1, kp), 0, mp)
+    w = _pad_to(_pad_to(kernel_q, 1, kp), 0, np_)
+    return torch._int_mm(a, w.t())[:m, :n]
+
+
 def int8_conv_mm(x_q, kernel_q, stride: int, padding: int, groups: int) -> torch.Tensor:
     """The same int32 conv as im2col and `torch._int_mm` per group: rows
     are output pixels (B * Ho * Wo), columns the taps (C/g * k * k). The
@@ -74,19 +97,52 @@ def int8_conv_mm(x_q, kernel_q, stride: int, padding: int, groups: int) -> torch
     cols = xp.unfold(2, kh, stride).unfold(3, kw, stride)  # [B, C, Ho, Wo, kh, kw]
     ho, wo = cols.shape[2], cols.shape[3]
     m, k = b * ho * wo, cg * kh * kw
-    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-og // 8) * 8
     outs = []
     for g in range(groups):
         a = cols[:, g * cg : (g + 1) * cg].permute(0, 2, 3, 1, 4, 5).reshape(m, k)
-        a = _pad_to(_pad_to(a, 1, kp), 0, mp)
-        wmat = _pad_to(_pad_to(kernel_q[g * og : (g + 1) * og].reshape(og, k), 1, kp), 0, np_)
-        y = torch._int_mm(a, wmat.t())  # [Mp, Np] int32
-        outs.append(y[:m, :og])
+        outs.append(int8_matmul_mm(a, kernel_q[g * og : (g + 1) * og].reshape(og, k)))
     y = outs[0] if groups == 1 else torch.cat(outs, dim=1)
     return y.reshape(b, ho, wo, o).permute(0, 3, 1, 2).contiguous()
 
 
-class QConv(nn.Module):
+class _QSite(nn.Module):
+    """What `QConv` and `QDense` share: the int8 quantization of the input
+    and the dequantization of the int32 result, per output channel on
+    dimension 1."""
+
+    def __init__(self, kernel_q, w_scale, x_scale, bias, out_dtype):
+        super().__init__()
+        self.register_buffer("kernel_q", kernel_q)
+        self.register_buffer("w_scale", w_scale)
+        self.register_buffer("x_scale", x_scale)
+        self.register_buffer("bias", bias)
+        self.out_dtype = out_dtype
+
+    def quantize_input(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(torch.round(x.float() / self.x_scale), -127.0, 127.0).to(torch.int8)
+
+    def dequantize(self, y: torch.Tensor) -> torch.Tensor:
+        shape = (-1,) + (1,) * (y.dim() - 2)
+        scale = (self.w_scale * self.x_scale).reshape(shape)
+        return (y.float() * scale + self.bias.reshape(shape)).to(self.out_dtype)
+
+
+class QDense(_QSite):
+    """The int8 projection of a quantized IR backbone (`qdense_apply`).
+    Buffers: `kernel_q` int8 [O, I] (Linear layout), `w_scale` float32 [O],
+    `x_scale` float32 [], `bias` float32 [O]."""
+
+    def int_matmul(self, x_q: torch.Tensor) -> torch.Tensor:
+        """int32 matmul: the float64 plain version for a CPU tensor, the
+        `_int_mm` route for a CUDA tensor."""
+        fn = int8_matmul_plain if x_q.device.type == "cpu" else int8_matmul_mm
+        return fn(x_q, self.kernel_q)
+
+    def forward(self, x):
+        return self.dequantize(self.int_matmul(self.quantize_input(x)))
+
+
+class QConv(_QSite):
     """The int8 conv of a quantized `ConvBN` (counterpart of the JAX
     ConvBN's `qconv` subtree and `qconv_apply`). Buffers: `kernel_q` int8
     [O, C/g, k, k], `w_scale` float32 [O], `x_scale` float32 [], `bias`
@@ -94,16 +150,8 @@ class QConv(nn.Module):
     it replaced (quantize after any `.to(dtype)` of the model)."""
 
     def __init__(self, kernel_q, w_scale, x_scale, bias, stride: int, padding: int, groups: int, out_dtype):
-        super().__init__()
-        self.register_buffer("kernel_q", kernel_q)
-        self.register_buffer("w_scale", w_scale)
-        self.register_buffer("x_scale", x_scale)
-        self.register_buffer("bias", bias)
+        super().__init__(kernel_q, w_scale, x_scale, bias, out_dtype)
         self.stride, self.padding, self.groups = stride, padding, groups
-        self.out_dtype = out_dtype
-
-    def quantize_input(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.clamp(torch.round(x.float() / self.x_scale), -127.0, 127.0).to(torch.int8)
 
     def int_conv(self, x_q: torch.Tensor) -> torch.Tensor:
         """int32 conv: the float64 plain version for a CPU tensor, the
@@ -112,14 +160,21 @@ class QConv(nn.Module):
         return fn(x_q, self.kernel_q, self.stride, self.padding, self.groups)
 
     def forward(self, x):
-        y = self.int_conv(self.quantize_input(x))
-        scale = (self.w_scale * self.x_scale)[:, None, None]
-        return (y.float() * scale + self.bias[:, None, None]).to(self.out_dtype)
+        return self.dequantize(self.int_conv(self.quantize_input(x)))
+
+
+def _sites(model: nn.Module) -> Dict[str, nn.Module]:
+    """{module name: module} of the calibration sites: the model's own
+    `quant_sites()` (an IR backbone), else every `ConvBN`."""
+    own = getattr(model, "quant_sites", None)
+    if own is not None:
+        return own()
+    return {n: m for n, m in model.named_modules() if isinstance(m, ConvBN)}
 
 
 def calibrate(model: nn.Module, batches: Iterable[torch.Tensor]) -> Dict[str, float]:
     """Run NCHW sample batches through the eval model, recording the
-    absolute maximum of every `ConvBN` input (in the input's own dtype),
+    absolute maximum of every site's input (in the input's own dtype),
     merged by max over batches. Returns {module name: absmax}."""
     seen: Dict[str, torch.Tensor] = {}
 
@@ -130,7 +185,7 @@ def calibrate(model: nn.Module, batches: Iterable[torch.Tensor]) -> Dict[str, fl
 
         return hook
 
-    hooks = [m.register_forward_pre_hook(tap(n)) for n, m in model.named_modules() if isinstance(m, ConvBN)]
+    hooks = [m.register_forward_pre_hook(tap(n)) for n, m in _sites(model).items()]
     n = 0
     try:
         with torch.inference_mode():
@@ -164,14 +219,55 @@ def quantize_site(conv: nn.Conv2d, absmax: float, clip_ratio: float = 1.0) -> QC
     )
 
 
+def quantize_dense(fc: nn.Linear, absmax: float, clip_ratio: float = 1.0) -> QDense:
+    """`_quantize_site` of the JAX package on a Dense: per output channel
+    (Linear rows here, Dense columns there)."""
+    k = fc.weight.detach().cpu().float().numpy()
+    w_absmax = np.max(np.abs(k), axis=1)
+    w_scale = np.maximum(w_absmax, 1e-12) / 127.0
+    kernel_q = np.clip(np.round(k / w_scale[:, None]), -127, 127).astype(np.int8)
+    x_scale = max(float(absmax) * clip_ratio, 1e-12) / 127.0
+    dev = fc.weight.device
+    return QDense(
+        torch.from_numpy(kernel_q).to(dev),
+        torch.from_numpy(w_scale.astype(np.float32)).to(dev),
+        torch.tensor(x_scale, dtype=torch.float32, device=dev),
+        fc.bias.detach().float().clone(),
+        fc.weight.dtype,
+    )
+
+
+def _quantize_flat(model: nn.Module, calib: Dict[str, float], clip_ratio: float) -> int:
+    """The IR backbones' flat layout: a calibrated folded conv (a conv with
+    bias) becomes a `QConv`, the projection `fc` a `QDense`."""
+    n = 0
+    for name, m in _sites(model).items():
+        if name not in calib or calib[name] == 0.0:
+            continue
+        if isinstance(m, nn.Linear):
+            q = quantize_dense(m, calib[name], clip_ratio)
+        elif isinstance(m, nn.Conv2d) and m.bias is not None:
+            depthwise = m.weight.shape[1] == 1 and m.weight.shape[0] > 1
+            if depthwise:
+                continue
+            q = quantize_site(m, calib[name], clip_ratio)
+        else:
+            continue  # unfolded, or quantized already
+        parent, _, attr = name.rpartition(".")
+        setattr(model.get_submodule(parent), attr, q)
+        n += 1
+    return n
+
+
 def quantize_model(model: nn.Module, calib: Dict[str, float], clip_ratio: float = 1.0) -> int:
     """Replace, in place, the conv of every calibrated, folded,
-    non-depthwise `ConvBN` whose absmax is not 0 by a `QConv`.
+    non-depthwise `ConvBN` whose absmax is not 0 by a `QConv` (for an IR
+    backbone: every such conv site, and `fc` by a `QDense`).
     `clip_ratio` scales every activation scale below its calibrated
     absmax (`search_clip_ratio`). Returns the number of sites; raises
     ValueError when there is none (an unfolded model, or calibration of
     another model)."""
-    n = 0
+    n = _quantize_flat(model, calib, clip_ratio) if hasattr(model, "quant_sites") else 0
     for name, m in model.named_modules():
         if not isinstance(m, ConvBN) or name not in calib:
             continue

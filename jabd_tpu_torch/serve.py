@@ -14,12 +14,15 @@ kernel K1, inside the Predictor or inside the artifact's graph.
 
     POST /detect   image bytes (jpg/png/...) -> {"faces": [[x1, y1, x2, y2,
                    score, 10 landmark coords], ...], "count": N}
+    POST /identify image bytes -> {"faces": [{"box", "score", "landmarks",
+                   "name", "cosine", "embedding"}, ...], "count": N}
     GET  /healthz  {"requests": N, "batches": M, "occupancy": ..., ...}
 
 The body is decoded as `cv2.imdecode` decodes it (`eval/run_wider.py::
 decode_bgr`: PIL, EXIF orientation applied, BGR); an undecodable body gets
-400, an unknown path 404. `/identify` (detect, align, embed, name) comes
-with the recognition slice and answers 503 until then; serving over a
+400, an unknown path 404. `/identify` detects through the shared batches,
+then aligns and embeds the request's faces on its handler thread
+(`IdentityService`); without an embedder it answers 503. Serving over a
 mesh of cards comes with the parallelism slice.
 """
 
@@ -156,10 +159,50 @@ class BatchingDetector:
 # ---------------------------------------------------------------------------
 
 
-def make_server(detector: BatchingDetector, host: str = "127.0.0.1", port: int = 8712):
+class IdentityService:
+    """The `/identify` extension: align a request's detections, embed them
+    through a `FacePipeline`'s fixed-batch graph and, with a `Gallery`,
+    name them. Detection stays on the BatchingDetector's shared batches;
+    only the embedding (112x112 crops) runs per request."""
+
+    def __init__(self, pipeline, gallery=None, threshold: float = 0.3):
+        self.pipeline = pipeline
+        self.gallery = gallery
+        self.threshold = threshold
+
+    def analyze(self, image: np.ndarray, dets: np.ndarray) -> list:
+        """BGR image and its [N, 15] pixel-space detections -> one JSON-ready
+        dict per face: box, score, landmarks, name, cosine and the
+        embedding rounded to 6 places."""
+        embs = self.pipeline.embed_detections(image, dets)
+        matches = (
+            self.gallery.match(embs, threshold=self.threshold)
+            if self.gallery is not None and len(embs)
+            else [(None, -1.0)] * len(embs)
+        )
+        return [
+            {
+                "box": [round(float(v), 3) for v in d[:4]],
+                "score": round(float(d[4]), 4),
+                "landmarks": [round(float(v), 3) for v in d[5:15]],
+                "name": name,
+                "cosine": round(float(sim), 4),
+                "embedding": np.round(e.astype(np.float64), 6).tolist(),
+            }
+            for d, e, (name, sim) in zip(dets, embs, matches)
+        ]
+
+
+def make_server(
+    detector: BatchingDetector,
+    host: str = "127.0.0.1",
+    port: int = 8712,
+    identity: Optional[IdentityService] = None,
+):
     """Build (not start) the ThreadingHTTPServer: its handler threads feed
     the one BatchingDetector, which forms the device batches. Port 0 takes
-    a free port (`server.server_address[1]`)."""
+    a free port (`server.server_address[1]`). `identity` enables
+    `/identify`."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     from jabd_tpu_torch.eval.run_wider import decode_bgr
@@ -183,10 +226,10 @@ def make_server(detector: BatchingDetector, host: str = "127.0.0.1", port: int =
                 self._json(404, {"error": "unknown path"})
 
         def do_POST(self):
-            if self.path == "/identify":
-                self._json(503, {"error": "the PyTorch port does not have yet: /identify: the recognition slice"})
+            if self.path == "/identify" and identity is None:
+                self._json(503, {"error": "no embedder: start the server with --arch/--ckpt to enable /identify"})
                 return
-            if self.path != "/detect":
+            if self.path not in ("/detect", "/identify"):
                 self._json(404, {"error": "unknown path"})
                 return
             raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
@@ -197,6 +240,10 @@ def make_server(detector: BatchingDetector, host: str = "127.0.0.1", port: int =
                 return
             try:
                 dets = detector.detect(img)
+                if self.path == "/identify":
+                    faces = identity.analyze(img, dets)
+                    self._json(200, {"faces": faces, "count": len(faces)})
+                    return
             except Exception as e:  # the daemon outlives one failed request
                 self._json(500, {"error": str(e)})
                 return
@@ -208,12 +255,18 @@ def make_server(detector: BatchingDetector, host: str = "127.0.0.1", port: int =
     return ThreadingHTTPServer((host, port), Handler)
 
 
-def serve(detector: BatchingDetector, host: str = "127.0.0.1", port: int = 8712) -> None:
+def serve(
+    detector: BatchingDetector,
+    host: str = "127.0.0.1",
+    port: int = 8712,
+    identity: Optional[IdentityService] = None,
+) -> None:
     """Serve until interrupted, then stop the detector's collector."""
-    srv = make_server(detector, host, port)
+    srv = make_server(detector, host, port, identity=identity)
     print(
         f"serving on http://{host}:{srv.server_address[1]} "
-        f"(batch {detector.batch_size}, input {detector.input_shape})",
+        f"(batch {detector.batch_size}, input {detector.input_shape}"
+        f"{', /identify enabled' if identity else ''})",
         flush=True,
     )
     try:

@@ -8,9 +8,14 @@ The port's module names mirror the flax paths, so the walk is mechanical:
 
   conv kernel HWIO (k, k, I, O)    -> weight OIHW   (depthwise (k,k,1,C) -> (C,1,k,k))
   conv1d kernel (k, 1, 1)          -> weight (1, 1, k)
-  conv bias                        -> bias
+  Dense kernel (in, out)           -> Linear weight (out, in)
+  conv / Dense bias                -> bias
+  PReLU alpha                      -> alpha
   BatchNorm scale / bias           -> weight / bias
   BatchNorm mean / var             -> running_mean / running_var (+ num_batches_tracked)
+
+An affine-free BatchNorm (the IR backbones' `features_bn`) has statistics
+and no parameters on both sides.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
 
 
 def _conv_weight(kernel: np.ndarray) -> np.ndarray:
+    if kernel.ndim == 2:  # Dense (I, O) -> Linear (O, I)
+        return kernel.T
     if kernel.ndim == 4:  # (H, W, I, O) -> (O, I, H, W)
         return kernel.transpose(3, 2, 0, 1)
     if kernel.ndim == 3:  # (W, I, O) -> (O, I, W)
@@ -51,8 +58,8 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             name = _BN_PARAMS[leaf]
         elif leaf == "kernel":
             name, value = "weight", _conv_weight(value)
-        elif leaf == "bias":
-            name = "bias"
+        elif leaf in ("bias", "alpha"):
+            name = leaf
         else:
             raise ValueError(f"unexpected parameter {'/'.join(path)}")
         out[".".join(module + (name,))] = torch.tensor(value, dtype=torch.float32)
@@ -67,6 +74,8 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def _conv_kernel(weight: np.ndarray) -> np.ndarray:
+    if weight.ndim == 2:  # Linear (O, I) -> Dense (I, O)
+        return weight.T
     if weight.ndim == 4:  # (O, I, H, W) -> (H, W, I, O)
         return weight.transpose(2, 3, 1, 0)
     if weight.ndim == 3:  # (O, I, W) -> (W, I, O)
@@ -94,8 +103,8 @@ def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
             name = inverse_bn[leaf]
         elif leaf == "weight":
             name, array = "kernel", _conv_kernel(array)
-        elif leaf == "bias":
-            name = "bias"
+        elif leaf in ("bias", "alpha"):
+            name = leaf
         else:
             raise ValueError(f"unexpected state dict entry {key}")
         node = tree

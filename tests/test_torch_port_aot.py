@@ -128,7 +128,7 @@ def test_refusals(setup, tmp_path):
     for change, err, match in (
         ({"version": aot.ARTIFACT_VERSION + 1}, ValueError, "newer than this loader"),
         ({"platforms": ["cuda"]}, ValueError, "loaded for 'cpu'"),
-        ({"kind": "embedder"}, NotImplementedError, "recognition slice"),
+        ({"kind": "classifier"}, ValueError, "unknown artifact kind"),
     ):
         (tmp_path / "manifest.json").write_text(json.dumps({**manifest, **change}))
         with pytest.raises(err, match=match):

@@ -10,7 +10,7 @@
   the JAX CLI's faces on the same `.pth`;
 - `dir-predict` (padded tail batch), `video` on a 3-frame MJPG clip,
   `count`, and an artifact through `export` and `predict --exported`;
-- the parallel and recognition flags exit naming their slice.
+- the parallel flags and recognition training exit naming their slice.
 
 Both CLIs build the presets in float32 here (their `get_model_config`
 patched), so the comparison is of the algorithm, not of bfloat16 rounding.
@@ -235,8 +235,8 @@ def test_video_on_a_three_frame_clip(golden_tree, tmp_path, capsys):
 @pytest.mark.parametrize(
     "argv,slice_name",
     [
-        (["identify", "--image", "x.png"], "recognition slice"),
-        (["serve", "--arch", "ir_50"], "recognition slice"),
+        (["recognition", "train", "--data-root", "."], "recognition training slice"),
+        (["recognition", "extract", "--image-list", "x", "--out-dir", "o", "--data-parallel"], "parallelism slice"),
         (["predict", "--image", "x.png", "--spatial"], "parallelism slice"),
         (["dir-predict", "--input-dir", ".", "--out", "o", "--data-parallel"], "parallelism slice"),
         (["map-txt", "--val-dir", ".", "--out", "o", "--data-parallel"], "parallelism slice"),
@@ -244,8 +244,13 @@ def test_video_on_a_three_frame_clip(golden_tree, tmp_path, capsys):
     ],
 )
 def test_later_slices_exit_naming_them(argv, slice_name):
+    main = cli.main
+    if argv[0] == "recognition":
+        from jabd_tpu_torch.recognition import cli as rcli
+
+        main, argv = rcli.main, argv[1:]
     with pytest.raises(SystemExit, match=slice_name):
-        cli.main(argv + CPU)
+        main(argv + CPU)
 
 
 def test_serve_int8_and_fps_on_the_cpu_refuse(golden_tree):

@@ -56,7 +56,22 @@ PORT_MODULES = [
     "jabd_tpu_torch.ops.nms",
     "jabd_tpu_torch.ops.nms_cuda",
     "jabd_tpu_torch.ops.resize",
+    "jabd_tpu_torch.pipeline",
     "jabd_tpu_torch.predict",
+    "jabd_tpu_torch.recognition",
+    "jabd_tpu_torch.recognition.align",
+    "jabd_tpu_torch.recognition.cli",
+    "jabd_tpu_torch.recognition.convert",
+    "jabd_tpu_torch.recognition.data",
+    "jabd_tpu_torch.recognition.fold",
+    "jabd_tpu_torch.recognition.identification",
+    "jabd_tpu_torch.recognition.ijbs",
+    "jabd_tpu_torch.recognition.ijbs_proto",
+    "jabd_tpu_torch.recognition.net",
+    "jabd_tpu_torch.recognition.tinyface",
+    "jabd_tpu_torch.recognition.torch_convert",
+    "jabd_tpu_torch.recognition.train",
+    "jabd_tpu_torch.recognition.verification",
     "jabd_tpu_torch.serve",
     "jabd_tpu_torch.train",
     "jabd_tpu_torch.utils",
@@ -135,6 +150,17 @@ def test_entry_points_raise_without_a_device_or_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+    from jabd_tpu_torch.pipeline import FacePipeline
+    from jabd_tpu_torch.recognition import build_model
+    from jabd_tpu_torch.recognition.train import extract_embeddings_tta
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model("ir_18")
+    model = build_model("ir_18", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FacePipeline(None, model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract_embeddings_tta(model, np.zeros((1, 112, 112, 3), np.float32))
 
 
 def test_configs_are_a_faithful_copy():

@@ -3,7 +3,8 @@
 
 - concurrent POST /detect answers equal `detect_image` on the decoded
   frame, and the JAX package's daemon over the same variables;
-- /healthz counts, 404s, the 503 on /identify, 400 on an undecodable body;
+- /healthz counts, 404s, the 503 on /identify without an embedder, 400 on
+  an undecodable body;
 - an artifact backend: its batch size is enforced, its shape is used;
 - `decode_bgr` of bytes equals its path form and `cv2.imdecode`.
 """
@@ -133,7 +134,7 @@ def test_http_errors(setup):
         assert srv.call("/nope")[0] == 404
         assert srv.call("/nope", b"x")[0] == 404
         code, body = srv.call("/identify", _png(np.zeros((8, 8, 3), np.uint8)))
-        assert code == 503 and "recognition slice" in body["error"]
+        assert code == 503 and "no embedder" in body["error"]
         code, body = srv.call("/detect", b"not an image")
         assert code == 400 and body == {"error": "undecodable image"}
         assert srv.call("/healthz")[1]["requests"] == 0
