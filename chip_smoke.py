@@ -149,7 +149,32 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    with it; `recognition.cli verify` over a seeded lfw.bin of 600 pairs of
    PIL-written JPEGs, `tinyface`, `extract --partitions 4` and `ijbs` over
    seeded synthetic trees.
-11. One JSON line of every kernel of the port: launches on the main paths,
+11. The recognition training path (`[rectrain]`), which launches neither
+   kernel (each count must stay 0): (a) ir_101 at AdaFace's widths
+   (112x112, 512-d) with the AdaFace head over 70,722 classes (m 0.4, h
+   0.333, s 64), bs 256, SGD lr 0.1, 10 steps on one seeded batch in
+   float32 (TF32 off) and in bf16 (`--precision 16`): losses finite and
+   the tenth below the first, ms/step (CUDA events), img/s, peak memory, a
+   profile (device busy, idle share, top kernels) and the head's share of
+   device time (its forward and backward timed alone); one step each of
+   ArcFace and CosFace. (b) One float32 step of ir_101 at bs 8, dropout 0,
+   on the card against the same step with a float64 backbone on the host's
+   CPU: loss, parameters, BatchNorm statistics and AdaFace's EMA within the
+   stated bounds, which a bf16 backbone step must fail; the CPU's float32
+   step printed beside it. (c)
+   microbatches=2 on duplicated halves against one batch (CosFace, dropout
+   0), the JAX package's bounds. (d) 256 faces of a seeded face folder
+   through `device_face_train_loader`: `device_augment_faces` on the card
+   (f32) byte-equal to the host's `augment_face` where no low-res draw
+   fires, within mean 3 / p99 8 grey levels where one does; its ms per
+   batch at bf16 and f32, bf16's deviation, the step with the augmentation
+   inside. (e) `recognition.cli train` over that folder (64 identities x
+   8 PIL-written PNG faces, 64 of them off-size) with a seeded lfw.bin:
+   2 epochs on the host loader, 2 with --device-augment --precision 16
+   --microbatches 2, resumed for a third; metrics.csv and best_meta.json
+   checked, steps/s per epoch and each loader's img/s alone; then
+   `recognition.cli verify --ckpt <dir>/3.pt`.
+12. One JSON line of every kernel of the port: launches on the main paths,
    error against the plain version, times and bound.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
@@ -1501,9 +1526,10 @@ TIMED_PRESETS = ("re50_eca_nonlocal", "re152_4level", "epsa50_4level", "mnet_v3_
 PRESETS_HEADS_SIZE, PRESETS_SERVE_SIZE, PRESETS_MATCH_SIZE = 320, 640, 840
 
 
-def profile_rows(fn, iters: int, unit: str, card: str, tag: str, top: int = 8, phase: str = "[presets]") -> None:
+def profile_rows(fn, iters: int, unit: str, card: str, tag: str, top: int = 8, phase: str = "[presets]") -> float:
     """Wall and device time of `fn()` under torch.profiler over `iters`
-    calls, with its top kernels by device time."""
+    calls, with its top kernels by device time. Returns the device busy
+    milliseconds per call."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1521,6 +1547,7 @@ def profile_rows(fn, iters: int, unit: str, card: str, tag: str, top: int = 8, p
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"{phase}   {e.self_device_time_total / 1000 / iters:8.3f} ms/{unit} "
               f"{e.count // iters:5d}x {e.key[:90]}")
+    return busy_ms
 
 
 def presets_eval(card, dev, name, calib, x2, batch8, pcfg, counts):
@@ -2816,6 +2843,336 @@ def _recognition_paths(card, dev, preset, state, tmp):
     return {"launches": k1_total}
 
 
+REC_TRAIN_ARCH, REC_TRAIN_BS, REC_TRAIN_CLASSES, REC_TRAIN_STEPS = "ir_101", 256, 70722, 10
+REC_TRAIN_LR = 0.1
+REC_TRAIN_CPU_BS = 8  # (b) card against the host's CPU
+# (c) two chunks of 32 at the JAX test's lr 0.01: its bounds are absolute,
+# and from scratch an lr 0.1 step moves early convs by several times their
+# weights, where float32 rounding of a batch-8 step shows (CPU, ir_18).
+REC_TRAIN_MB_HALF, REC_TRAIN_MB_LR = 32, 0.01
+REC_TRAIN_AUG_BS = 256  # (d) faces of one device-augmented batch
+REC_TRAIN_IDS, REC_TRAIN_PER_ID, REC_TRAIN_CLI_BS, REC_TRAIN_VAL_PAIRS = 64, 8, 64, 100
+# (b) card float32 (TF32 off) against the CPU's float64 step: the loss
+# (the detection step's 1e-3), each parameter within 5e-2 of its change
+# (+ 1e-6), each statistic within 1e-3 of its tensor's largest value (+
+# 1e-6), AdaFace's EMA relative. float32 itself lies 1.7-4.7% of the
+# worst parameter's change from float64 at this depth, on the card and on
+# the CPU alike (scripts/probe_rec_train_precision.py).
+REC_TRAIN_LOSS_TOL, REC_TRAIN_PARAM_TOL, REC_TRAIN_STAT_TOL, REC_TRAIN_EMA_TOL = 1e-3, 5e-2, 1e-3, 1e-5
+LSB = 2 / 255  # one grey level on the [-1, 1] scale
+
+
+def rec_train_model(arch: str, dev, dropout: float = 0.4, seed: int = 0):
+    """IR backbone `arch` with torch's default init under a forked RNG
+    seeded with `seed` (what `recognition.cli train` builds), on `dev`."""
+    from jabd_tpu_torch.recognition import build_model
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = build_model(arch, device="cpu")
+    model.dropout = dropout
+    return model.to(dev)
+
+
+def rec_train_state(arch, head_type, dev, dropout=0.4, lr=REC_TRAIN_LR):
+    from jabd_tpu_torch.recognition import build_head
+    from jabd_tpu_torch.recognition import train as RT
+
+    model = rec_train_model(arch, dev, dropout)
+    head = build_head(head_type, class_num=REC_TRAIN_CLASSES, seed=0, device=dev)
+    return RT.create_state(model, head, num_train_steps_hint=1000, lr=lr, milestones=(500, 800))
+
+
+def write_face_folder(root: str, rng, n_ids: int, per_id: int) -> int:
+    """An ImageFolder of PIL-written PNG faces, n_ids identities x per_id;
+    every identity's first face off-size (96x120, resized to 112 by the
+    loaders). Returns the number of off-size faces."""
+    from PIL import Image
+
+    for i in range(n_ids):
+        d = os.path.join(root, f"id{i:03d}")
+        os.makedirs(d)
+        for k in range(per_id):
+            h, w = (120, 96) if k == 0 else (112, 112)
+            Image.fromarray(smooth_image(rng, h, w)).save(os.path.join(d, f"{k}.png"))
+    return n_ids
+
+
+def _state_errors(a, b, start):
+    """Two RecTrainStates after a step from the parameters `start`: (the
+    worst parameter error over its bound, REC_TRAIN_PARAM_TOL * its change
+    + 1e-6, with that parameter's name, error and change; the worst
+    statistic error over REC_TRAIN_STAT_TOL * its largest value + 1e-6;
+    AdaFace's EMA relative error). Each ratio must be <= 1."""
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    worst_p = (0.0, "", 0.0, 0.0)
+    for name, p0 in start.items():
+        x, y = pa[name].detach().double().cpu(), pb[name].detach().double().cpu()
+        moved, err = float((y - p0).abs().max()), float((x - y).abs().max())
+        worst_p = max(worst_p, (err / (REC_TRAIN_PARAM_TOL * moved + 1e-6), name, err, moved))
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    worst_s = max(float((sa[k].double().cpu() - v.double().cpu()).abs().max())
+                  / (REC_TRAIN_STAT_TOL * float(v.double().abs().max()) + 1e-6)
+                  for k, v in sb.items() if "running" in k)
+    ema = max(abs(float(getattr(a.head, k)) / float(getattr(b.head, k)) - 1) for k in ("batch_mean", "batch_std"))
+    return worst_p, worst_s, ema
+
+
+def rectrain_phase(card, dev):
+    """Drive the recognition training path (module docstring, phase 11).
+    Returns the K1 and K2 launches on it (both must be 0)."""
+    tmp = tempfile.mkdtemp(prefix="rectrain_")
+    try:
+        return _rectrain_paths(card, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rectrain_paths(card, dev, tmp):
+    import re
+
+    from jabd_tpu_torch.ops import matching_cuda, nms_cuda
+    from jabd_tpu_torch.recognition import data as RD
+    from jabd_tpu_torch.recognition import device_augment as FDA
+    from jabd_tpu_torch.recognition import train as RT
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(21)
+    reset_counts()
+    on_card = dev.type == "cuda"
+
+    def faces_nhwc(n):
+        return torch.from_numpy(RD.normalize_face(seeded_faces(rng, n)))
+
+    # (a) The step at full width: ir_101, 112x112, AdaFace over 70,722
+    # classes, bs 256, SGD lr 0.1, on one seeded batch.
+    x = faces_nhwc(REC_TRAIN_BS).to(dev)
+    y = torch.from_numpy(rng.integers(0, REC_TRAIN_CLASSES, REC_TRAIN_BS)).to(dev)
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        state = rec_train_state(REC_TRAIN_ARCH, "adaface", dev)
+        mb = 1
+        while True:
+            step = RT.make_train_step(microbatches=mb, compute_dtype=dtype)
+            try:
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                state, m = step(state, x, y)
+                break
+            except torch.cuda.OutOfMemoryError:
+                state = rec_train_state(REC_TRAIN_ARCH, "adaface", dev)
+                torch.cuda.empty_cache()
+                mb *= 2
+                print(f"[rectrain] (a) {dtype} bs {REC_TRAIN_BS} did not fit in one batch: microbatches={mb}")
+                check(mb <= 4, "the step fits with at most 4 microbatches")
+        losses, times = [float(m["loss"])], []
+        for _ in range(REC_TRAIN_STEPS - 1):
+            if on_card:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+            state, m = step(state, x, y)
+            if on_card:
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+        ms = statistics.median(times[1:]) if times else float("nan")
+        print(f"[rectrain] (a) {REC_TRAIN_ARCH} {dtype} bs {REC_TRAIN_BS} microbatches {mb}, AdaFace "
+              f"{REC_TRAIN_CLASSES} classes: {ms:.3f} ms/step (median of steps 3-{REC_TRAIN_STEPS}, events), "
+              f"{1000 * REC_TRAIN_BS / ms:.1f} img/s, peak {peak:.2f} GiB; losses "
+              f"{[round(v, 3) for v in losses]} ({time.perf_counter() - t0:.1f} s) [{card}]")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{dtype}: losses finite, the tenth below the first")
+        if on_card:
+            busy = profile_rows(lambda: step(state, x, y), iters=3, unit="step", card=card,
+                                tag=f"{REC_TRAIN_ARCH} {dtype} bs {REC_TRAIN_BS} step", phase="[rectrain]")
+            emb = torch.nn.functional.normalize(torch.randn(REC_TRAIN_BS, 512, device=dev), dim=1)
+            norms = torch.rand(REC_TRAIN_BS, 1, device=dev) * 30 + 5
+            emb.requires_grad_(True)
+
+            def head_step():
+                loss = torch.nn.functional.cross_entropy(state.head(emb, norms, y), y)
+                loss.backward()
+
+            head_ms = device_ms(head_step)
+            share = head_ms / busy if head_ms and busy else None
+            print(f"[rectrain] (a) {dtype}: the head's forward + backward alone {fmt_ms(head_ms)} of device time "
+                  f"against {fmt_ms(busy)} a step: share {'not measured' if share is None else f'{share:.4f}'}")
+        del state, step
+        if on_card:
+            torch.cuda.empty_cache()
+    for head_type in ("arcface", "cosface"):
+        state = rec_train_state(REC_TRAIN_ARCH, head_type, dev)
+        state, m = RT.make_train_step(microbatches=mb, compute_dtype="float32")(state, x, y)
+        print(f"[rectrain] (a) {head_type} f32 bs {REC_TRAIN_BS}: one step, loss {float(m['loss']):.4f}")
+        check(np.isfinite(float(m["loss"])), f"{head_type} step finite")
+        del state
+    del x, y
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) Card against the host's CPU: one step of ir_101 at bs 8, dropout
+    # 0, from the same weights and batch. The reference is the CPU's step
+    # with a float64 backbone (the head computes in float32 by design): the
+    # card's float32 step must lie within the bounds of it, and a bf16
+    # backbone step must not (the bounds tell that precision apart). The
+    # CPU's own float32 step is printed beside them.
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    xb = faces_nhwc(REC_TRAIN_CPU_BS)
+    yb = torch.from_numpy(rng.integers(0, REC_TRAIN_CLASSES, REC_TRAIN_CPU_BS))
+    ref_state = rec_train_state(REC_TRAIN_ARCH, "adaface", cpu, dropout=0.0)
+    ref_state.model.double()
+    start = {n: p.detach().double().clone() for n, p in ref_state.named_parameters()}
+    ref_state, m_ref = RT.make_train_step()(ref_state, xb, yb)
+    ref_loss = float(m_ref["loss"])
+    errs, states, losses = {}, {}, {}
+    for tag, d, dtype in (("card f32", dev, "float32"), ("CPU f32", cpu, "float32"), ("card bf16", dev, "bfloat16")):
+        st = rec_train_state(REC_TRAIN_ARCH, "adaface", d, dropout=0.0)
+        st, m = RT.make_train_step(compute_dtype=dtype)(st, xb.to(d), yb.to(d))
+        losses[tag] = float(m["loss"])
+        errs[tag] = (abs(losses[tag] / ref_loss - 1), *_state_errors(st, ref_state, start))
+        if dtype == "float32":
+            states[tag] = st
+    errs["card f32 against CPU f32"] = (abs(losses["card f32"] / losses["CPU f32"] - 1),
+                                        *_state_errors(states["card f32"], states["CPU f32"], start))
+    parts = []
+    for tag, (loss_err, (p_ratio, p_name, p_abs, p_moved), s_ratio, ema_err) in errs.items():
+        parts.append(f"{tag}: loss rel err {loss_err:.3e}, worst parameter {p_ratio:.3e} of its bound ({p_name}: "
+                     f"error {p_abs:.3e}, change {p_moved:.3e}), worst statistic {s_ratio:.3e} of its bound, "
+                     f"EMA rel err {ema_err:.3e}")
+    print(f"[rectrain] (b) {REC_TRAIN_ARCH} bs {REC_TRAIN_CPU_BS} one step against the CPU's step with a float64 "
+          f"backbone (bounds: loss {REC_TRAIN_LOSS_TOL}; each parameter {REC_TRAIN_PARAM_TOL} x its change + 1e-6; "
+          f"each statistic {REC_TRAIN_STAT_TOL} x its largest value + 1e-6; EMA {REC_TRAIN_EMA_TOL}): "
+          f"{'; '.join(parts)} ({time.perf_counter() - t0:.1f} s) [{card}]")
+    loss_err, p_err, s_err, ema_err = errs["card f32"]
+    check(loss_err <= REC_TRAIN_LOSS_TOL and p_err[0] <= 1 and s_err <= 1 and ema_err <= REC_TRAIN_EMA_TOL,
+          "card f32 step == the CPU's float64 step")
+    check(errs["card bf16"][1][0] > 1, "the bounds reject a bf16 backbone step")
+    del ref_state, states
+
+    # (c) microbatches=2 on duplicated halves against one batch (CosFace,
+    # dropout 0), the JAX package's test: its lr 0.01 and bounds (loss 1e-5,
+    # parameters rtol 5e-4 atol 2e-4).
+    hx, hy = faces_nhwc(REC_TRAIN_MB_HALF), torch.from_numpy(rng.integers(0, REC_TRAIN_CLASSES, REC_TRAIN_MB_HALF))
+    xc, yc = torch.cat([hx, hx]).to(dev), torch.cat([hy, hy]).to(dev)
+    out = {}
+    for mbc in (1, 2):
+        st = rec_train_state(REC_TRAIN_ARCH, "cosface", dev, dropout=0.0, lr=REC_TRAIN_MB_LR)
+        st, m = RT.make_train_step(microbatches=mbc)(st, xc, yc)
+        out[mbc] = (float(m["loss"]), {n: p.detach().clone() for n, p in st.named_parameters()})
+    loss_rel = abs(out[2][0] / out[1][0] - 1)
+    excess = max(float(((out[2][1][n] - p).abs() - 5e-4 * p.abs()).max()) for n, p in out[1][1].items())
+    worst = max(float((out[2][1][n] - p).abs().max()) for n, p in out[1][1].items())
+    print(f"[rectrain] (c) {REC_TRAIN_ARCH} CosFace bs {2 * REC_TRAIN_MB_HALF} lr {REC_TRAIN_MB_LR}: microbatches=2 "
+          f"on duplicated halves "
+          f"against one batch: loss rel err {loss_rel:.3e} (bound 1e-5), parameters max abs diff {worst:.3e} "
+          f"(bound rtol 5e-4, atol 2e-4) [{card}]")
+    check(loss_rel <= 1e-5 and excess <= 2e-4, "microbatches=2 == one batch on duplicated halves")
+    del out
+
+    # (d) Augmentation on the card against the port's host path, from the
+    # face folder that (e) trains on.
+    root = os.path.join(tmp, "faces")
+    n_off = write_face_folder(root, rng, REC_TRAIN_IDS, REC_TRAIN_PER_ID)
+    ds = RD.ImageFolderDataset(root)
+    seed = 1
+    idxs = next(RD.epoch_order(len(ds), REC_TRAIN_AUG_BS, seed))
+    u8, plan32, labels = next(FDA.device_face_train_loader(ds, REC_TRAIN_AUG_BS, seed=seed, matrix_dtype=torch.float32))
+    plan16 = next(FDA.device_face_train_loader(ds, REC_TRAIN_AUG_BS, seed=seed))[1]
+    host = np.stack([ds.get(int(i), RD.sample_rng(seed, i))[0] for i in idxs])
+    u8d = torch.from_numpy(u8).to(dev)
+    p32 = FDA.FaceAugmentPlan(*(t.to(dev) for t in plan32))
+    p16 = FDA.FaceAugmentPlan(*(t.to(dev) for t in plan16))
+    got32 = FDA.device_augment_faces(u8d, p32, resample_dtype=torch.float32).cpu().numpy()
+    got16 = FDA.device_augment_faces(u8d, p16).cpu().numpy()
+    lowres = np.asarray([RD.draw_face_augment_params(RD.sample_rng(seed, i), 112, 112, ds.crop_prob, ds.low_res_prob,
+                                                     ds.photometric_prob).lowres is not None for i in idxs])
+    diff = np.abs(got32 - host)
+    plain = ~lowres
+    n_plain_diff = int((diff[plain] > 0).sum())
+    lr_mean = max((float(diff[i].mean()) for i in np.flatnonzero(lowres)), default=0.0)
+    lr_p99 = max((float(np.quantile(diff[i], 0.99)) for i in np.flatnonzero(lowres)), default=0.0)
+    dev16 = float(np.abs(got16 - got32).max())
+    times = {}
+    if on_card:
+        times = {tag: cuda_ms(lambda p=p, r=r: FDA.device_augment_faces(u8d, p, resample_dtype=r), iters=10)
+                 for tag, p, r in (("bf16", p16, torch.bfloat16), ("f32", p32, torch.float32))}
+    print(f"[rectrain] (d) device_augment_faces bs {REC_TRAIN_AUG_BS} (f32) against the host's augment_face: "
+          f"{int(plain.sum())} faces without a low-res draw differ in {n_plain_diff} of {diff[plain].size} values "
+          f"(must be 0); {int(lowres.sum())} with one: worst mean {lr_mean / LSB:.3f}, worst p99 {lr_p99 / LSB:.1f} grey "
+          f"levels (bounds 3, 8); bf16 against f32 max {dev16 / LSB:.1f} grey levels; ms per batch {times} "
+          f"[{card}]")
+    check(n_plain_diff == 0 and lr_mean < 3 * LSB and lr_p99 <= 8 * LSB, "device augmentation == host path")
+    check(np.array_equal(labels, np.asarray([ds.samples[int(i)][1] for i in idxs])), "device loader labels")
+    state = rec_train_state(REC_TRAIN_ARCH, "adaface", dev)
+    yl = torch.from_numpy(labels).to(dev).long()
+    aug_step = RT.make_train_step_aug(microbatches=mb, compute_dtype="bfloat16")
+    plain_step = RT.make_train_step(microbatches=mb, compute_dtype="bfloat16")
+    xa = FDA.device_augment_faces(u8d, p16)
+    if on_card:
+        aug_ms = cuda_ms(lambda: aug_step(state, u8d, p16, yl), iters=5)
+        plain_ms = cuda_ms(lambda: plain_step(state, xa, yl), iters=5)
+        print(f"[rectrain] (d) bf16 bs {REC_TRAIN_AUG_BS} step with the augmentation inside {aug_ms:.3f} ms against "
+              f"{plain_ms:.3f} ms on augmented images [{card}]")
+    else:
+        aug_step(state, u8d, p16, yl)
+    del state, u8d, p16, p32, xa
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (e) The CLI over the face folder: 2 epochs on the host loader, 2 with
+    # --device-augment (bf16, 2 microbatches), a resume for a third, then
+    # verify on a checkpoint it wrote.
+    t0 = time.perf_counter()
+    for name, loader in (("host", RD.recognition_train_loader), ("device", FDA.device_face_train_loader)):
+        t1 = time.perf_counter()
+        n = sum(len(b[-1]) for b in loader(ds, REC_TRAIN_CLI_BS, seed=seed))
+        print(f"[rectrain] (e) {name} loader alone, 8 threads: {n / (time.perf_counter() - t1):.1f} img/s")
+    vdir = os.path.join(tmp, "val")
+    os.makedirs(vdir)
+    write_lfw_bin(os.path.join(vdir, "lfw.bin"), rng, REC_TRAIN_VAL_PAIRS)
+    dv = ["--device", dev.type]
+    base = ["train", "--data-root", root, "--batch-size", REC_TRAIN_CLI_BS, "--val-dir", vdir, *dv]
+    runs = {}
+
+    def cli_train(tag, ck, extra):
+        text = run_rcli(base + ["--checkpoint-dir", ck] + extra)
+        epochs = [(float(a), int(b)) for a, b in re.findall(r"epoch \d+/\d+: .*\(([\d.]+) s, (\d+) steps\)", text)]
+        runs[tag] = epochs
+        sps = [round(s / t, 2) for t, s in epochs]
+        print(f"[rectrain] (e) recognition.cli train {tag}: steps/s per epoch {sps} [{card}]")
+        return text
+
+    ck1, ck2 = os.path.join(tmp, "ck_host"), os.path.join(tmp, "ck_device")
+    cli_train("host loader f32, 2 epochs", ck1, ["--epochs", 2])
+    cli_train("--device-augment --precision 16 --microbatches 2, 2 epochs", ck2,
+              ["--epochs", 2, "--device-augment", "--precision", 16, "--microbatches", 2])
+    text = cli_train("resume to a third epoch", ck2, ["--epochs", 3, "--device-augment", "--precision", 16,
+                                                      "--microbatches", 2])
+    check("resumed from checkpoint at epoch 2" in text and len(runs["resume to a third epoch"]) == 1, "resume")
+    steps_per_epoch = len(ds) // REC_TRAIN_CLI_BS
+    for ck, n_ep in ((ck1, 2), (ck2, 3)):
+        rows = open(os.path.join(ck, "metrics.csv")).read().splitlines()
+        check(rows[0] == "epoch,step,loss,acc,val_acc" and len(rows) == n_ep + 1, f"{ck} metrics.csv rows")
+        check([r.split(",")[:2] for r in rows[1:]] == [[str(e), str(e * steps_per_epoch)] for e in range(1, n_ep + 1)],
+              "metrics.csv epochs and steps")
+        check(all(np.isfinite(float(r.split(",")[2])) and r.split(",")[4] for r in rows[1:]), "losses and val_acc")
+        meta = json.load(open(os.path.join(ck, "best_meta.json")))
+        check(os.path.exists(os.path.join(ck, "best", f"{meta['epoch']}.pt")), "best copy")
+    ver = last_json(run_rcli(["verify", "--ckpt", os.path.join(ck2, "3.pt"), "--data-dir", vdir, *dv]))
+    check(0.0 <= ver["lfw"]["val_acc"] <= 1.0, "verify reads the trained checkpoint")
+    print(f"[rectrain] (e) {REC_TRAIN_IDS} identities x {REC_TRAIN_PER_ID} faces ({n_off} off-size), bs "
+          f"{REC_TRAIN_CLI_BS}: metrics.csv and best_meta.json checked; verify --ckpt 3.pt {ver['mean']} "
+          f"({time.perf_counter() - t0:.1f} s for (e))")
+
+    k1, k2 = nms_cuda.nms_keep_sorted.launches, matching_cuda.match_front.launches
+    print(f"[rectrain] K1 launches {k1}, K2 launches {k2} on these paths (none expected); "
+          f"{time.perf_counter() - t_phase:.1f} s for the phase")
+    check(k1 == 0 and k2 == 0, "the recognition training path launches neither kernel")
+    return {"k1": k1, "k2": k2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3049,13 +3406,17 @@ def main() -> int:
     # -- phase 10: the recognition half --------------------------------------
     rec = recognition_phase(card, dev, preset, state)
 
-    # -- phase 11: the kernels line ------------------------------------------
+    # -- phase 11: the recognition training path -----------------------------
+    rectrain = rectrain_phase(card, dev)
+
+    # -- phase 12: the kernels line ------------------------------------------
     kernels = [{
         "name": "nms_keep_sorted",
         "route": "cuda",
         "source": "jabd_tpu_torch/csrc/nms.cu",
         "replaces": "jabd_tpu/ops/nms_pallas.py:42",
-        "launches": main_launches + k1_wider["launches"] + k1_presets["launches"] + app["k1"] + rec["launches"],
+        "launches": (main_launches + k1_wider["launches"] + k1_presets["launches"] + app["k1"] + rec["launches"]
+                     + rectrain["k1"]),
         "max_abs_err": max(worst, k1_wider["max_abs_err"], k1_presets["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
@@ -3067,7 +3428,7 @@ def main() -> int:
         "route": "cuda",
         "source": "jabd_tpu_torch/csrc/matching.cu",
         "replaces": "jabd_tpu/ops/matching_pallas.py:37",
-        **{**k2, "launches": k2["launches"] + app["k2"]},
+        **{**k2, "launches": k2["launches"] + app["k2"] + rectrain["k2"]},
         # No single torch call computes the front half (per-prior best GT
         # and per-GT best prior over the IoU matrix).
         "library_ms": None,

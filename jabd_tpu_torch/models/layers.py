@@ -90,20 +90,17 @@ def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> nn.Conv2d:
 # ---------------------------------------------------------------------------
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d whose running variance follows flax's BatchNorm.
+class _FlaxRunningVar:
+    """Training-mode running variance as flax's BatchNorm keeps it.
 
     Both normalize a training batch with its biased variance and keep
     running = (1 - m) * running + m * batch (flax momentum 0.9 is torch
     momentum 0.1). torch folds the UNBIASED batch variance (x n / (n - 1),
-    n = B*H*W) into running_var, flax the biased one. After torch's own
+    n = numel / C) into running_var, flax the biased one. After torch's own
     update the batch term m * var_u is running_var' - (1 - m) * running_var,
     and m * var_b is that times (n - 1) / n; so the correction costs a few
     C-sized ops and no pass over the activations. Only training mode
-    differs from nn.BatchNorm2d."""
-
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=BN_EPS, momentum=0.1)
+    differs from torch's BatchNorm."""
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
@@ -118,6 +115,20 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var = self.running_var - batch_term / n
         return y
 
+
+class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
+    """nn.BatchNorm2d with flax's running variance (`_FlaxRunningVar`)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=0.1)
+
+
+class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):
+    """nn.BatchNorm1d with flax's running variance (`_FlaxRunningVar`);
+    affine-free when `affine` is False (the IR backbones' features_bn)."""
+
+    def __init__(self, num_features: int, affine: bool = True):
+        super().__init__(num_features, eps=BN_EPS, momentum=0.1, affine=affine)
 
 
 class ConvBN(nn.Module):

@@ -1,9 +1,12 @@
-"""Face-recognition half of the port (AdaFace-style), inference and
-evaluation: the IR / IR-SE embedders (net.py), BatchNorm folding, the
-ArcFace alignment, the reference's checkpoint names, the verification,
-TinyFace and IJB-S evaluators and the recognition CLI. Port of
-`jabd_tpu/recognition`; its training (heads, augmentation, the train step)
-comes with the recognition training slice.
+"""Face-recognition half of the port (AdaFace-style): the IR / IR-SE
+embedders (net.py), the margin heads (heads.py), the training
+augmentation on the host (data.py) and on the card (device_augment.py),
+the SGD train step and `fit` (train.py), BatchNorm folding, the ArcFace
+alignment, the reference's checkpoint names, the verification, TinyFace
+and IJB-S evaluators and the recognition CLI. Port of
+`jabd_tpu/recognition`; its class-sharded head (parallel.py) comes with the
+parallelism slice.
 """
 
+from jabd_tpu_torch.recognition.heads import build_head  # noqa: F401
 from jabd_tpu_torch.recognition.net import IRBackbone, build_model  # noqa: F401

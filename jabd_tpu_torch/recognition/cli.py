@@ -3,6 +3,7 @@
 Port of `jabd_tpu/recognition/cli.py`, with its flags and defaults, on the
 card unless `--device cpu` is given:
 
+  python -m jabd_tpu_torch.recognition.cli train    --data-root faces/ [--device-augment] [--precision 16]
   python -m jabd_tpu_torch.recognition.cli verify   --data-dir val/
   python -m jabd_tpu_torch.recognition.cli tinyface --tinyface-root tf/
   python -m jabd_tpu_torch.recognition.cli extract  --image-list l.txt --out-dir f/
@@ -12,8 +13,10 @@ card unless `--device cpu` is given:
 `--ckpt` takes a reference AdaFace `.pth`/`.tar`/`.ckpt` (its names mapped
 by recognition/torch_convert.py) or a state dict of the port saved with
 `torch.save`; without it the weights are a seeded random init and a
-`[warn]` says so. `train` waits for the recognition training slice and
-`extract --data-parallel` for the parallelism slice: each exits naming it.
+`[warn]` says so. `train` writes `<checkpoint-dir>/<epoch>.pt` with the
+backbone's state dict under "model", which `--ckpt` of the other commands
+reads. `train --shard-head` / `--fsdp` and `extract --data-parallel` wait
+for the parallelism slice: each exits naming it.
 """
 
 from __future__ import annotations
@@ -22,7 +25,6 @@ import argparse
 import json
 import sys
 
-TRAINING = "the recognition training slice"
 PARALLEL = "the parallelism slice"
 
 
@@ -119,7 +121,40 @@ def cmd_export(args):
 
 
 def cmd_train(args):
-    _not_yet("recognition train", TRAINING)
+    """AdaFace training over the ImageFolder at --data-root (recognition/
+    train.fit): the backbone seeded with --seed under a forked torch RNG,
+    the head's kernel from a generator seeded with it."""
+    import torch
+
+    from jabd_tpu_torch import resolve_device
+    from jabd_tpu_torch.recognition import build_head, build_model
+    from jabd_tpu_torch.recognition import train as RT
+    from jabd_tpu_torch.recognition.data import ImageFolderDataset
+
+    if args.shard_head or args.fsdp:
+        _not_yet("recognition train --shard-head / --fsdp", PARALLEL)
+    dev = resolve_device(args.device)
+    ds = ImageFolderDataset(args.data_root)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        model = build_model(args.arch, device="cpu")
+    model = model.to(dev)
+    head = build_head(args.head, class_num=ds.num_classes, m=args.m, seed=args.seed, device=dev)
+    steps_per_epoch = max(len(ds) // args.batch_size, 1)
+    state = RT.create_state(
+        model, head, num_train_steps_hint=steps_per_epoch * args.epochs, lr=args.lr,
+        milestones=tuple(m * steps_per_epoch for m in args.milestones),
+    )
+    maker = RT.make_train_step_aug if args.device_augment else RT.make_train_step
+    step = maker(
+        microbatches=args.microbatches, compute_dtype="bfloat16" if args.precision == 16 else "float32",
+        seed=args.seed,
+    )
+    RT.fit(
+        state, step, ds, args.batch_size, args.epochs, device_augment=args.device_augment, seed=args.seed,
+        val_dir=args.val_dir, checkpoint_dir=args.checkpoint_dir, save_period=args.save_period,
+        resume=not args.no_resume, device=dev,
+    )
 
 
 def cmd_verify(args):
@@ -223,9 +258,33 @@ def build_parser() -> argparse.ArgumentParser:
         )
         device(sp)
 
-    sp = sub.add_parser("train", help=f"AdaFace training ({TRAINING})")
-    sp.add_argument("--data-root", default="")
+    sp = sub.add_parser("train", help="AdaFace training over a class-per-directory image folder")
+    sp.add_argument("--data-root", required=True)
     sp.add_argument("--arch", default="ir_50")
+    sp.add_argument("--head", default="adaface")
+    sp.add_argument("--m", type=float, default=0.4)
+    sp.add_argument("--lr", type=float, default=0.1)
+    sp.add_argument("--batch-size", type=int, default=256)
+    sp.add_argument("--epochs", type=int, default=26)
+    sp.add_argument("--milestones", type=int, nargs="+", default=[12, 20, 24],
+                    help="epochs at which the lr falls by 10x")
+    sp.add_argument("--val-dir", default="", help="validation .bin sets or memfiles, checked after each epoch")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument(
+        "--checkpoint-dir", default="",
+        help="epoch checkpoints <dir>/<epoch>.pt (backbone, head, optimizer, step) with auto-resume from "
+        "the latest; a best-on-val_acc copy under <dir>/best, best_meta.json and per-epoch metrics.csv",
+    )
+    sp.add_argument("--save-period", type=int, default=1)
+    sp.add_argument("--no-resume", action="store_true", help="start fresh even if --checkpoint-dir has checkpoints")
+    sp.add_argument("--device-augment", action="store_true",
+                    help="run the augmentation on the card inside the step; the host only decodes")
+    sp.add_argument("--shard-head", action="store_true", help=f"class-sharded head over cards ({PARALLEL})")
+    sp.add_argument("--fsdp", action="store_true", help=f"with --shard-head: shard the backbone ({PARALLEL})")
+    sp.add_argument("--microbatches", type=int, default=1,
+                    help="split each batch into N chunks (ghost BatchNorm), average their gradients, one update")
+    sp.add_argument("--precision", type=int, choices=(16, 32), default=32,
+                    help="16 runs the backbone under bfloat16 autocast (parameters and the head stay float32)")
     device(sp)
     sp.set_defaults(fn=cmd_train)
 

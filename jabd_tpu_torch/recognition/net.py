@@ -8,8 +8,12 @@ parameter names mirror the flax paths (`stage2_block0.shortcut_conv.weight`,
 carries weights between the two packages.
 
 The graph computes in the dtype of its parameters (float32 as built, or
-`model.to(torch.bfloat16)` after folding, as the detector's presets do);
-the embedding is normalized in float32 at the end.
+`model.to(torch.bfloat16)` after folding, as the detector's presets do),
+or in bfloat16 under torch.autocast with float32 parameters (the train
+step's `--precision 16`); the embedding is normalized in float32 at the
+end. In training mode the BatchNorms keep flax's running variance
+(`models/layers.BatchNorm2d` / `BatchNorm1d`) and the dropout before `fc`
+draws its mask from the generator the caller passes.
 
 Folding (`recognition/fold.py`) sets a conv's BatchNorm attribute to None
 and gives the conv a bias; int8 quantization (`models/quantize.py`) then
@@ -28,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from jabd_tpu_torch import resolve_device
-from jabd_tpu_torch.models.layers import BN_EPS, BatchNorm2d, fold_conv_bn
+from jabd_tpu_torch.models.layers import BatchNorm1d, BatchNorm2d, fold_conv_bn
 from jabd_tpu_torch.models.retinaface import DTYPES
 
 # Module names of the convs and the projection that int8 quantizes (the
@@ -193,10 +197,12 @@ class IRBackbone(nn.Module):
                 self.add_module(f"stage{si + 1}_block{bi}", block(cin, depth, 2 if bi == 0 else 1, se))
                 cin = depth
         self.output_bn = BatchNorm2d(cin)
-        self.dropout = nn.Dropout(dropout)
-        side = image_size // 16
+        self.dropout = dropout
+        side = image_size
+        for _ in IR_STAGES[num_layers]:  # each stage halves the side, rounding up
+            side = -(-side // 2)
         self.fc = nn.Linear(cin * side * side, embedding_size)
-        self.features_bn: Optional[nn.Module] = nn.BatchNorm1d(embedding_size, eps=BN_EPS, affine=False)
+        self.features_bn: Optional[nn.Module] = BatchNorm1d(embedding_size, affine=False)
 
     def blocks(self):
         return [m for n, m in self.named_children() if n.startswith("stage")]
@@ -213,7 +219,19 @@ class IRBackbone(nn.Module):
 
             self.fc, self.features_bn = fold_linear_bn(self.fc, self.features_bn), None
 
-    def forward(self, x):
+    def _dropout(self, h, generator: Optional[torch.Generator]):
+        """flax Dropout in training mode: keep each value with probability
+        1 - p and scale it by 1 / (1 - p), the mask drawn from `generator`
+        (torch's default generator when None); the identity in eval mode."""
+        if not self.training or self.dropout <= 0.0:
+            return h
+        keep = 1.0 - self.dropout
+        mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+        return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """`generator` draws the dropout mask in training mode (a
+        torch.Generator on x's device)."""
         x = x.to(self.output_bn.weight.dtype)
         h = self.input_prelu(_bn(self.input_bn, self.input_conv(x)))
         for blk in self.blocks():
@@ -221,7 +239,7 @@ class IRBackbone(nn.Module):
         # The JAX package transposes NHWC to CHW before its flatten so that
         # the reference's Linear weights line up; in NCHW that is the
         # identity.
-        h = self.dropout(self.output_bn(h)).flatten(1)
+        h = self._dropout(self.output_bn(h), generator).flatten(1)
         h = _bn(self.features_bn, self.fc(h)).float()
         norm = torch.linalg.vector_norm(h, dim=1, keepdim=True)
         return h / norm, norm

@@ -1,28 +1,331 @@
-"""Recognition evaluation: flip-TTA embedding extraction and the 5-set
-verification.
+"""Recognition training and evaluation: the SGD train step, `fit`, and
+flip-TTA extraction with the 5-set verification.
 
-Port of the evaluation half of `jabd_tpu/recognition/train.py`
-(`extract_embeddings_tta`, `extract_features_partitioned`,
-`validate_5sets`, `validate_verification`). Every batch, the tail
-included, is padded to `batch_size`, so a sweep runs one shape. The train
-step and `fit` come with the recognition training slice; sharding a sweep
-over cards (`mesh=`) with the parallelism slice.
+Port of `jabd_tpu/recognition/train.py`, the reference's recipe
+(train_val.py, main.py) on one device:
+
+  * model(images) -> (embedding, norm); head(embedding, norm, labels) ->
+    scaled margin logits; cross-entropy over them (train_val.py:52-70);
+  * SGD with momentum 0.9 and weight decay 5e-4 on every parameter but
+    the BatchNorms' (split_parameters, train_val.py:204-233): PReLU
+    alphas, biases and the head's kernel are decayed. torch's SGD adds the
+    decay to the gradient and starts its momentum at the first gradient,
+    which is optax.chain(add_decayed_weights, trace, scale_by_learning_rate);
+  * the learning rate of update `count` is lr * gamma ** (the number of
+    milestones <= count), optax.piecewise_constant_schedule's rule, set
+    before each update (`RecTrainState.lr_at`);
+  * validation with horizontal-flip TTA and 10-fold verification.
+
+The step runs eagerly and updates the state in place, the backbone and
+the head in training mode: BatchNorm statistics with flax's running
+variance, AdaFace's norm EMA, dropout from a torch.Generator seeded per
+(seed, step, microbatch chunk) (`models/retinaface.dropout_seed`: the
+same draws on every resume, not the JAX package's). With
+compute_dtype "bfloat16" (`--precision 16`) the backbone runs under
+torch.autocast while its parameters, the head and the loss stay float32.
+Every batch of an extraction, the tail included, is padded to
+`batch_size`, so a sweep runs one shape. Sharding the head over cards
+(`recognition/parallel.py`) and a sweep over cards (`mesh=`) come with
+the parallelism slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
 import os
-from typing import Dict, Optional, Tuple
+import time
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from jabd_tpu_torch import resolve_device
+from jabd_tpu_torch.models.retinaface import dropout_seed
 from jabd_tpu_torch.recognition import identification as ID
 from jabd_tpu_torch.recognition import verification as V
 
 PARALLEL = "the parallelism slice"
+# Steps a loop may run ahead of the host before it waits for an old loss.
+MAX_IN_FLIGHT = 3
+
+
+def _is_bn_param(name: str) -> bool:
+    """Only BatchNorm parameters skip the weight decay: a dotted name with
+    a component containing "bn" (the reference's split_parameters)."""
+    return any("bn" in part for part in name.split("."))
+
+
+def make_optimizer(
+    named_params: Sequence[Tuple[str, torch.nn.Parameter]],
+    lr: float,
+    momentum: float = 0.9,
+    weight_decay: float = 5e-4,
+) -> torch.optim.SGD:
+    """SGD with momentum, two groups: decayed (every name `_is_bn_param`
+    rejects) and not decayed."""
+    decay = [p for n, p in named_params if not _is_bn_param(n)]
+    no_decay = [p for n, p in named_params if _is_bn_param(n)]
+    return torch.optim.SGD(
+        [{"params": decay, "weight_decay": weight_decay}, {"params": no_decay, "weight_decay": 0.0}],
+        lr=lr, momentum=momentum, dampening=0.0, nesterov=False,
+    )
+
+
+@dataclasses.dataclass
+class RecTrainState:
+    """Backbone, head, optimizer and schedule; `step` counts the updates,
+    which the schedule reads (the JAX state's step and optax count)."""
+
+    model: torch.nn.Module
+    head: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    lr: float
+    milestones: Tuple[int, ...]
+    gamma: float = 0.1
+    step: int = 0
+
+    def named_parameters(self):
+        return [(f"model.{n}", p) for n, p in self.model.named_parameters()] + [
+            (f"head.{n}", p) for n, p in self.head.named_parameters()
+        ]
+
+    def lr_at(self, count: int) -> float:
+        return self.lr * self.gamma ** sum(1 for m in self.milestones if m <= count)
+
+    def apply_gradients(self) -> None:
+        """One SGD update with the gradients in `.grad`, at the lr of the
+        current count."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr_at(self.step)
+        self.optimizer.step()
+        self.step += 1
+
+    def state_dict(self) -> Dict:
+        """The backbone's state dict under "model" (what `recognition.cli
+        verify --ckpt` reads), the head's, the optimizer's and the step."""
+        return {
+            "model": self.model.state_dict(),
+            "head": self.head.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+        }
+
+    def load_state_dict(self, payload: Dict) -> None:
+        self.model.load_state_dict(payload["model"])
+        self.head.load_state_dict(payload["head"])
+        self.optimizer.load_state_dict(payload["optimizer"])
+        self.step = int(payload["step"])
+
+
+def create_state(
+    model: torch.nn.Module,
+    head: torch.nn.Module,
+    num_train_steps_hint: int,
+    lr: float = 0.1,
+    milestones: Optional[Sequence[int]] = None,
+    gamma: float = 0.1,
+) -> RecTrainState:
+    """The train state of `model` and `head` (on the device they are on).
+    `milestones` are update counts; without them, the AdaFace recipe's
+    epochs 12 / 20 / 24 of 26 scaled to `num_train_steps_hint`. Raises
+    ValueError unless the milestones increase strictly: the JAX package
+    lets scaled milestones collide (hint <= 4) and then drops decays."""
+    if milestones is None:
+        milestones = tuple(max(1, int(num_train_steps_hint * e / 26)) for e in (12, 20, 24))
+    milestones = tuple(int(m) for m in milestones)
+    if any(b <= a for a, b in zip(milestones, milestones[1:])):
+        raise ValueError(
+            f"lr milestones {milestones} must increase strictly (num_train_steps_hint "
+            f"{num_train_steps_hint}); equal milestones would drop a decay"
+        )
+    state = RecTrainState(model=model, head=head, optimizer=None, lr=lr, milestones=milestones, gamma=gamma)
+    state.optimizer = make_optimizer(state.named_parameters(), lr)
+    return state
+
+
+def make_train_step(microbatches: int = 1, compute_dtype: str = "float32", seed: int = 0):
+    """step(state, images [B, S, S, 3] float32, labels [B] int) -> (state,
+    metrics {"loss", "acc"} as 0-d device tensors): train-mode forward,
+    the head on float32 embeddings, cross-entropy, backward, one SGD
+    update. Images and labels lie on the model's device.
+
+    `microbatches` > 1 (accumulate_grad_batches, main.py:40-50): the batch
+    splits into that many chunks, each with its own forward and backward;
+    BatchNorm normalizes per chunk (ghost BN) and its statistics carry from
+    chunk to chunk, as does AdaFace's norm EMA; the summed gradients are
+    divided by the count before one update; metrics are the chunks' means.
+    Raises ValueError when the batch does not divide."""
+    return _make_step(microbatches, compute_dtype, seed, augment=None)
+
+
+def make_train_step_aug(
+    microbatches: int = 1, compute_dtype: str = "float32", seed: int = 0,
+    resample_dtype: torch.dtype = torch.bfloat16,
+):
+    """The device-augmented twin of make_train_step: step(state, images_u8
+    [B, S, S, 3] uint8, plan, labels) with a `device_augment.FaceAugmentPlan`
+    on the images' device; each chunk augments its own slice first
+    (`device_augment_faces`, no gradient)."""
+    from jabd_tpu_torch.recognition.device_augment import device_augment_faces
+
+    def augment(images_u8, plan, part):
+        with torch.no_grad():
+            return device_augment_faces(images_u8[part], type(plan)(*(t[part] for t in plan)), resample_dtype)
+
+    return _make_step(microbatches, compute_dtype, seed, augment=augment)
+
+
+def _make_step(microbatches: int, compute_dtype: str, seed: int, augment):
+    bf16 = compute_dtype == "bfloat16"
+    mb = max(microbatches, 1)
+
+    def chunk_backward(state: RecTrainState, images, labels, stream: int):
+        x = images.permute(0, 3, 1, 2)
+        generator = None
+        if state.model.dropout > 0.0:
+            generator = torch.Generator(x.device).manual_seed(dropout_seed(seed, stream))
+        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+            emb, norm = state.model(x, generator=generator)
+        # The margin head stays float32 (outside autocast) under bf16.
+        logits = state.head(emb.float(), norm.float(), labels)
+        loss = F.cross_entropy(logits, labels.long())
+        loss.backward()  # adds into .grad
+        acc = (logits.detach().argmax(-1) == labels).float().mean()
+        return loss.detach(), acc
+
+    def run(state: RecTrainState, make_images, labels):
+        b = labels.shape[0]
+        if b % mb:
+            raise ValueError(f"batch {b} not divisible by microbatches={mb}")
+        state.model.train()
+        state.head.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        n = b // mb
+        chunks = []
+        for i in range(mb):
+            part = slice(i * n, (i + 1) * n)
+            # A dropout stream per chunk: step * mb + i.
+            chunks.append(chunk_backward(state, make_images(part), labels[part], state.step * mb + i))
+        if mb > 1:
+            for _, p in state.named_parameters():
+                if p.grad is not None:
+                    p.grad.div_(mb)
+        loss, acc = (torch.stack(m).mean() for m in zip(*chunks))
+        state.apply_gradients()
+        return state, {"loss": loss, "acc": acc}
+
+    if augment is None:
+
+        def step(state: RecTrainState, images: torch.Tensor, labels: torch.Tensor):
+            return run(state, lambda part: images[part], labels)
+
+        return step
+
+    def aug_step(state: RecTrainState, images_u8: torch.Tensor, plan, labels: torch.Tensor):
+        return run(state, lambda part: augment(images_u8, plan, part), labels)
+
+    return aug_step
+
+
+def fit(
+    state: RecTrainState,
+    step_fn,
+    ds,
+    batch_size: int,
+    epochs: int,
+    *,
+    device_augment: bool = False,
+    seed: int = 0,
+    val_dir: str = "",
+    checkpoint_dir: str = "",
+    save_period: int = 1,
+    max_to_keep: int = 3,
+    resume: bool = True,
+    log=print,
+    device=None,
+) -> RecTrainState:
+    """The reference's Lightning Trainer around the step (main.py:15-62) on
+    `device` (the card unless given): epochs of batches from
+    `data.recognition_train_loader` or, with `device_augment`,
+    `device_augment.device_face_train_loader`, copied ahead through
+    `train.prefetch_to_device`; the host waits for the loss of the step
+    MAX_IN_FLIGHT back, so it never runs further ahead. Per epoch:
+    flip-TTA validation on the sets under `val_dir`, a checkpoint
+    (`utils/checkpoint.CheckpointManager`, optimizer included) every
+    `save_period` epochs and at the last, a copy under
+    `<checkpoint_dir>/best` with `best_meta.json` when val_acc improves,
+    and a row of `<checkpoint_dir>/metrics.csv` (epoch,step,loss,acc,
+    val_acc). Resumes from the latest checkpoint unless resume is False."""
+    from jabd_tpu_torch.train import prefetch_to_device
+    from jabd_tpu_torch.utils.checkpoint import CheckpointManager
+
+    dev = resolve_device(device)
+    if device_augment:
+        from jabd_tpu_torch.recognition.device_augment import device_face_train_loader as loader
+    else:
+        from jabd_tpu_torch.recognition.data import recognition_train_loader as loader
+
+    mgr = best_mgr = None
+    best_meta_path = metrics_path = None
+    best_acc = -1.0
+    start_epoch = 0
+    if checkpoint_dir:
+        mgr = CheckpointManager(checkpoint_dir, max_to_keep=max_to_keep)
+        best_mgr = CheckpointManager(os.path.join(checkpoint_dir, "best"), max_to_keep=1)
+        best_meta_path = os.path.join(checkpoint_dir, "best_meta.json")
+        metrics_path = os.path.join(checkpoint_dir, "metrics.csv")
+        if os.path.exists(best_meta_path):
+            with open(best_meta_path) as f:
+                best_acc = float(json.load(f).get("val_acc", -1.0))
+        if resume and mgr.latest_step() is not None:
+            state = mgr.restore(state)
+            start_epoch = int(mgr.latest_step())
+            log(f"resumed from checkpoint at epoch {start_epoch}")
+        if not os.path.exists(metrics_path):
+            with open(metrics_path, "w") as f:
+                f.write("epoch,step,loss,acc,val_acc\n")
+
+    for epoch in range(start_epoch + 1, epochs + 1):
+        t0 = time.perf_counter()
+        losses, accs = [], []
+        synced = 0
+        batches = (
+            tuple(torch.from_numpy(x) if isinstance(x, np.ndarray) else x for x in batch)
+            for batch in loader(ds, batch_size, seed=seed + epoch)
+        )
+        for batch in prefetch_to_device(batches, dev, depth=2):
+            state, m = step_fn(state, *batch)
+            losses.append(m["loss"])
+            accs.append(m["acc"])
+            if len(losses) - synced > MAX_IN_FLIGHT:
+                losses[synced].item()
+                synced += 1
+        loss = float(torch.stack(losses).mean()) if losses else math.nan
+        acc = float(torch.stack(accs).mean()) if accs else math.nan
+        log(f"epoch {epoch}/{epochs}: loss={loss:.4f} acc={acc:.4f} "
+            f"({time.perf_counter() - t0:.2f} s, {len(losses)} steps)")
+
+        val_acc = None
+        if val_dir:
+            out = validate_5sets(state.model, val_dir, device=dev)
+            val_acc = out["mean"]["val_acc"]
+            log(json.dumps(out))
+        if metrics_path:
+            with open(metrics_path, "a") as f:
+                f.write(f"{epoch},{state.step},{loss:.6f},{acc:.6f},"
+                        f"{'' if val_acc is None else f'{val_acc:.6f}'}\n")
+        if mgr and (epoch % save_period == 0 or epoch == epochs):
+            mgr.save(epoch, state)
+        if best_mgr and val_acc is not None and val_acc > best_acc:
+            best_acc = val_acc
+            best_mgr.save(epoch, state)
+            with open(best_meta_path, "w") as f:
+                json.dump({"epoch": epoch, "val_acc": val_acc}, f)
+            log(f"new best val_acc {val_acc:.4f} at epoch {epoch}")
+    return state
 
 
 def extract_embeddings_tta(

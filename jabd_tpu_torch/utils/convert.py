@@ -112,3 +112,30 @@ def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
             node = node.setdefault(part, {})
         node[name] = array
     return {"params": params, "batch_stats": stats}
+
+
+# The margin heads' tree: a raw [D, C] `kernel` parameter (no Dense, so no
+# transpose) and AdaFace's 0-d norm statistics.
+_HEAD_STATS = ("batch_mean", "batch_std")
+
+
+def rec_state_dicts_from_flax(params: Mapping, batch_stats: Mapping) -> Tuple[Dict, Dict]:
+    """A JAX `RecTrainState`'s params and batch_stats ({"model", "head"}
+    each) -> (backbone state dict, head state dict)."""
+    model = state_dict_from_flax({"params": params["model"], "batch_stats": batch_stats.get("model", {})})
+    head = {"kernel": torch.tensor(np.asarray(params["head"]["kernel"]), dtype=torch.float32)}
+    for name, value in batch_stats.get("head", {}).items():
+        head[name] = torch.tensor(np.asarray(value), dtype=torch.float32)
+    return model, head
+
+
+def flax_from_rec_state_dicts(model: Mapping[str, torch.Tensor], head: Mapping[str, torch.Tensor]):
+    """(backbone state dict, head state dict or a dict of the head's
+    gradients) -> ({"model", "head"} params, {"model", "head"}
+    batch_stats) as nested dicts of float32 numpy arrays: the inverse of
+    `rec_state_dicts_from_flax`."""
+    tree = flax_from_state_dict(model)
+    arrays = {k: v.detach().cpu().float().numpy() for k, v in head.items()}
+    params = {"model": tree["params"], "head": {"kernel": arrays["kernel"]}}
+    stats = {"model": tree["batch_stats"], "head": {k: arrays[k] for k in _HEAD_STATS if k in arrays}}
+    return params, stats

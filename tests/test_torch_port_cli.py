@@ -10,7 +10,7 @@
   the JAX CLI's faces on the same `.pth`;
 - `dir-predict` (padded tail batch), `video` on a 3-frame MJPG clip,
   `count`, and an artifact through `export` and `predict --exported`;
-- the parallel flags and recognition training exit naming their slice.
+- the parallel flags (recognition training's included) exit naming their slice.
 
 Both CLIs build the presets in float32 here (their `get_model_config`
 patched), so the comparison is of the algorithm, not of bfloat16 rounding.
@@ -235,7 +235,8 @@ def test_video_on_a_three_frame_clip(golden_tree, tmp_path, capsys):
 @pytest.mark.parametrize(
     "argv,slice_name",
     [
-        (["recognition", "train", "--data-root", "."], "recognition training slice"),
+        (["recognition", "train", "--data-root", ".", "--shard-head"], "parallelism slice"),
+        (["recognition", "train", "--data-root", ".", "--fsdp"], "parallelism slice"),
         (["recognition", "extract", "--image-list", "x", "--out-dir", "o", "--data-parallel"], "parallelism slice"),
         (["predict", "--image", "x.png", "--spatial"], "parallelism slice"),
         (["dir-predict", "--input-dir", ".", "--out", "o", "--data-parallel"], "parallelism slice"),

@@ -63,7 +63,9 @@ PORT_MODULES = [
     "jabd_tpu_torch.recognition.cli",
     "jabd_tpu_torch.recognition.convert",
     "jabd_tpu_torch.recognition.data",
+    "jabd_tpu_torch.recognition.device_augment",
     "jabd_tpu_torch.recognition.fold",
+    "jabd_tpu_torch.recognition.heads",
     "jabd_tpu_torch.recognition.identification",
     "jabd_tpu_torch.recognition.ijbs",
     "jabd_tpu_torch.recognition.ijbs_proto",
@@ -120,6 +122,40 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "jabd_tpu"))
+        assert not bad, bad
+        """
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=_repo_root())
+
+
+def test_recognition_training_path_imports_neither_jax_cv2_nor_the_jax_package(tmp_path):
+    """The training path run, not only imported, in a fresh interpreter:
+    both loaders over PNG faces (a low-res draw in every sample, so the
+    host's cv2-free resize runs), the device augmentation and one step of
+    each kind on ir_18 at 56x56. PIL decodes; cv2 never loads."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    for c in ("a", "b"):
+        (tmp_path / c).mkdir()
+        for i in range(2):
+            Image.fromarray(rng.integers(0, 256, (56, 56, 3), dtype=np.uint8)).save(tmp_path / c / f"{i}.png")
+    code = textwrap.dedent(
+        f"""
+        import sys, torch
+        torch.set_num_threads(1)
+        from jabd_tpu_torch.recognition import build_head, data as D, device_augment as FDA, train as RT
+        from jabd_tpu_torch.recognition.net import IRBackbone
+        ds = D.ImageFolderDataset({str(tmp_path)!r}, low_res_prob=1.0, output_size=56)
+        images, labels = next(D.recognition_train_loader(ds, 4, num_workers=1))
+        u8, plan, labels2 = next(FDA.device_face_train_loader(ds, 4, num_workers=1))
+        state = RT.create_state(IRBackbone(18, dropout=0.4, image_size=56),
+                                build_head("adaface", class_num=2, device="cpu"), 100)
+        state, m = RT.make_train_step()(state, torch.from_numpy(images), torch.from_numpy(labels))
+        state, m = RT.make_train_step_aug()(state, torch.from_numpy(u8), plan, torch.from_numpy(labels2))
+        assert state.step == 2 and bool(torch.isfinite(m["loss"]))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "jabd_tpu", "cv2"))
         assert not bad, bad
         """
     )
