@@ -174,7 +174,31 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    --microbatches 2, resumed for a third; metrics.csv and best_meta.json
    checked, steps/s per epoch and each loader's img/s alone; then
    `recognition.cli verify --ckpt <dir>/3.pt`.
-12. One JSON line of every kernel of the port: launches on the main paths,
+12. Data parallelism (`[parallel]`): two ranks of `parallel/spawn.py` share
+   the card (gloo over CUDA tensors: NCCL refuses two ranks on one card),
+   each resetting the launch counts before its paths and returning them,
+   so the K2 line sums them over the ranks. (a) `jabd_flagship` f32 (TF32
+   off) 840x840, global batch 4 (rank 0's images 60 and 45 faces, rank
+   1's 3 and 1): one mesh step against the single-process step on the card
+   (loss terms 1e-3, gradients 5e-2 per tensor and 2e-2 over all, running
+   statistics 1e-3 of the largest value), each rank launching K2; `fit`
+   for 2 epochs, rank 0's checkpoints, a resume to 3: parameters
+   bit-identical across the ranks, the checkpoint in the single-process
+   layout. (b) `re152_4level` with `TrainConfig.fsdp` against its
+   replicated 2-rank step (the same bounds), `assert_sharded`, per-rank
+   parameter + Adam bytes against replicated. (c) `ir_18` with the AdaFace
+   head over 70,722 classes sharded in halves, 112x112, bs 16: the 2-rank
+   and the single-process step on the card each within [rectrain] (b)'s
+   bounds of the CPU's float64 step, half the head's bytes a rank;
+   `recognition.cli train --shard-head` on the 2 ranks, then `verify
+   --ckpt`. (d) a local mesh of two replicas on the card: `Predictor`
+   bf16 640x640 bs 8 conf 0.02 equal to one replica on the same rows at
+   its batch, K1 once per replica; `detect_images` on mixed sizes;
+   `AotDetector` over the mesh; `cli map-txt --data-parallel` against the
+   plain dump; `extract_embeddings_tta(mesh=)` against one device. Times
+   are of a second step, both ranks on one card: semantic checks, not
+   speedups.
+13. One JSON line of every kernel of the port: launches on the main paths,
    error against the plain version, times and bound.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
@@ -3173,6 +3197,448 @@ def _rectrain_paths(card, dev, tmp):
     return {"k1": k1, "k2": k2}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: data parallelism
+# ---------------------------------------------------------------------------
+
+# (a) global batch over 2 ranks; (b) FSDP preset; (c) recognition backbone
+# and global batch; (d) serving replicas' batch.
+# (c) runs 8 faces a rank: [rectrain] (b)'s bound was measured on steps at
+# batch 8, and at 4 a rank cuDNN's f32 algorithms (TF32 off) put one BatchNorm
+# bias 1.10 of it from the float64 step (PERF.md, PR 10).
+PAR_BATCH, PAR_FSDP_PRESET, PAR_REC_ARCH, PAR_REC_BS, PAR_SERVE_BS = 4, "re152_4level", "ir_18", 16, 8
+PAR_SERVE_SIZE = 640
+PAR_FIT_IMAGES, PAR_CLI_IDS, PAR_CLI_PER_ID = 8, 8, 4
+# (a), (b): a 2-rank step against one process (both f32 on the card, TF32
+# off): loss terms within [train] (a)'s 1e-3; gradients within the CPU
+# tests' bounds against the JAX package (5e-2 per tensor over the tensors
+# not ~0, 2e-2 over all); running statistics 1e-3 of the tensor's largest
+# value (+ 1e-5).
+PAR_LOSS_TOL, PAR_GRAD_TOL, PAR_GRAD_TOTAL_TOL, PAR_STAT_TOL = 1e-3, 5e-2, 2e-2, 1e-3
+
+
+class SyntheticWider:
+    """`n` seeded noise images with 1-3 faces each, `get(idx, rng)` as
+    data/wider.py's datasets answer it (for `fit`)."""
+
+    def __init__(self, n: int, size: int):
+        self.n, self.size = n, size
+
+    def __len__(self):
+        return self.n
+
+    def get(self, idx, rng):
+        image = rng.normal(0, 50, (self.size, self.size, 3)).astype(np.float32)
+        return image, face_rows(rng, [1 + idx % 3])[0]
+
+
+def grad_errors(got: dict, want: dict):
+    """(worst per-tensor |got - want| / |want| over tensors whose norm
+    exceeds 1e-5, with its name; the same over all tensors at once)."""
+    per = {k: float((got[k] - w).norm() / w.norm()) for k, w in want.items() if float(w.norm()) > 1e-5}
+    flat = lambda d: torch.cat([d[k].reshape(-1) for k in want])  # noqa: E731
+    total = float((flat(got) - flat(want)).norm() / flat(want).norm())
+    name = max(per, key=per.get)
+    return per[name], name, total
+
+
+def stat_error(got: dict, want: dict) -> float:
+    """Worst running-statistic error over PAR_STAT_TOL x its tensor's
+    largest value + 1e-5 (must be <= 1)."""
+    return max(float((got[k] - v).abs().max()) / (PAR_STAT_TOL * float(v.abs().max()) + 1e-5)
+               for k, v in want.items() if "running" in k)
+
+
+def timed_ms(fn, dev):
+    """(fn(), its milliseconds): CUDA events on a card, the host clock
+    elsewhere."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1000
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def free(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def det_step_result(model_cfg, tcfg, images, targets, anchors, mesh):
+    """One detector train step from the seeded init on `mesh` (this rank's
+    rows of the global batch): metrics, full gradients and running
+    statistics on the CPU; then a second step on the same rows, timed (ms,
+    CUDA events); K2 launches over both, and the state."""
+    from jabd_tpu_torch import train as T
+    from jabd_tpu_torch.ops import matching_cuda
+    from jabd_tpu_torch.parallel import fsdp as FS
+    from jabd_tpu_torch.parallel import mesh as M
+
+    dev = mesh.device
+    state = T.create_train_state(model_cfg, tcfg, 1, device=dev, mesh=mesh)
+    x, tg = (images, targets)
+    if M.is_sharded(mesh):
+        x, tg = M.shard_batch((images, targets), mesh, chunks=max(tcfg.microbatches, 1))
+    x, tg = x.to(dev), type(tg)(*(t.to(dev) for t in tg))
+    step = T.make_train_step(model_cfg, tcfg, mesh=mesh)
+    anchors = anchors.to(dev)
+    reset_counts()
+    state, m = step(state, x, tg, anchors)
+    grads = {n: FS.full_tensor(p, p.grad).detach().cpu().double()
+             for n, p in state.model.named_parameters() if p.grad is not None}
+    stats = {k: v.detach().cpu().double() for k, v in FS.full_model_state_dict(state.model).items() if "running" in k}
+    _, ms = timed_ms(lambda: step(state, x, tg, anchors), dev)  # a second step, timed
+    k2 = matching_cuda.match_front.launches
+    return {"metrics": {k: float(v) for k, v in m.items()}, "grads": grads, "stats": stats, "k2": k2,
+            "ms": ms}, state
+
+
+def parallel_rank(payload, mesh):
+    """What each of the two ranks of [parallel] (a)-(c) runs: gloo over
+    CUDA tensors, both ranks on cuda:0. Returns numbers only (launches per
+    path, errors, times, bytes, hashes)."""
+    import dataclasses
+    import hashlib
+
+    from jabd_tpu_torch import configs
+    from jabd_tpu_torch import train as T
+    from jabd_tpu_torch.ops import matching_cuda
+    from jabd_tpu_torch.parallel import fsdp as FS
+    from jabd_tpu_torch.parallel import mesh as M
+    from jabd_tpu_torch.recognition import parallel as RP
+    from jabd_tpu_torch.recognition import train as RT
+    from jabd_tpu_torch.utils.checkpoint import CheckpointManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank, "k2": {}}
+    lead = mesh.rank == 0
+    images, targets, anchors = payload["images"], payload["targets"], payload["anchors"]
+
+    # (a) the flagship step, against the single-process step the parent saved.
+    cfg32 = dataclasses.replace(configs.get_model_config("jabd_flagship"), compute_dtype="float32")
+    tcfg = configs.TrainConfig(batch_size=PAR_BATCH)
+    res, state = det_step_result(cfg32, tcfg, images, targets, anchors, mesh)
+    out["k2"]["(a) train_step"] = res["k2"]
+    out["a_ms"] = res["ms"]
+    if lead:
+        ref = torch.load(payload["ref_path"], weights_only=False)
+        out["a_loss"] = max(abs(res["metrics"][k] / ref["metrics"][k] - 1) for k in ref["metrics"])
+        out["a_grad"] = grad_errors(res["grads"], ref["grads"])
+        out["a_stat"] = stat_error(res["stats"], ref["stats"])
+    del state, res
+    free(mesh.device)
+
+    # (a) fit: 2 epochs across the freeze boundary, rank 0 checkpoints,
+    # then a resume to a third; the ranks' parameters must be identical.
+    fcfg = dataclasses.replace(tcfg, total_epochs=2, freeze_epochs=1, save_period=1)
+    ds = SyntheticWider(PAR_FIT_IMAGES, fcfg.image_size)
+    mgr = CheckpointManager(payload["fit_dir"])
+    reset_counts()
+    t0 = time.perf_counter()
+    T.fit(cfg32, fcfg, ds, log_dir=payload["log_dir"], checkpoint_manager=mgr, device=mesh.device, mesh=mesh)
+    state = T.fit(cfg32, dataclasses.replace(fcfg, total_epochs=3), ds, log_dir=payload["log_dir"],
+                  checkpoint_manager=mgr, device=mesh.device, mesh=mesh)
+    free(mesh.device)
+    out["fit_s"] = time.perf_counter() - t0
+    out["k2"]["(a) fit"] = matching_cuda.match_front.launches
+    digest = hashlib.sha256()
+    for v in state.model.state_dict().values():
+        digest.update(v.detach().cpu().contiguous().numpy().tobytes())
+    out["fit_hash"], out["fit_step"], out["fit_steps"] = digest.hexdigest(), state.step, mgr.all_steps()
+    del state
+    free(mesh.device)
+
+    # (b) FSDP on re152_4level against the replicated step on the same ranks.
+    rcfg = dataclasses.replace(configs.get_model_config(PAR_FSDP_PRESET), compute_dtype="float32")
+    a_rcfg = torch.from_numpy(payload["anchors_fsdp"])
+    rep, state = det_step_result(rcfg, tcfg, images, targets, a_rcfg, mesh)
+    out["k2"]["(b) replicated step"] = rep["k2"]
+    out["b_rep_ms"] = rep["ms"]
+    out["b_rep_bytes"] = FS.local_bytes(state.model, state.optimizer)
+    del state
+    free(mesh.device)
+    sh, state = det_step_result(rcfg, dataclasses.replace(tcfg, fsdp=True), images, targets, a_rcfg, mesh)
+    FS.assert_sharded(state.model, mesh)
+    out["k2"]["(b) fsdp step"] = sh["k2"]
+    out["b_fsdp_ms"] = sh["ms"]
+    out["b_fsdp_bytes"] = FS.local_bytes(state.model, state.optimizer)
+    out["b_n_sharded"] = sum(1 for p in state.model.parameters() if hasattr(p, "full_tensor"))
+    out["b_loss"] = max(abs(sh["metrics"][k] / rep["metrics"][k] - 1) for k in rep["metrics"])
+    out["b_grad"] = grad_errors(sh["grads"], rep["grads"])
+    out["b_stat"] = stat_error(sh["stats"], rep["stats"])
+    del state, sh, rep
+    free(mesh.device)
+
+    # (c) the class-sharded AdaFace head over 70,722 classes: one step.
+    from jabd_tpu_torch.recognition import build_head
+
+    model = rec_train_model(PAR_REC_ARCH, mesh.device, dropout=0.0)
+    head = build_head("adaface", class_num=REC_TRAIN_CLASSES, pad_to=mesh.size, seed=0, device=mesh.device)
+    rstate = RT.create_state(model, head, num_train_steps_hint=1000, lr=REC_TRAIN_LR, milestones=(500, 800))
+    step, rstate = RP.make_sharded_train_step(rstate, mesh)
+    out["c_head_bytes"] = rstate.head.kernel.numel() * rstate.head.kernel.element_size()
+    out["c_head_full_bytes"] = 512 * head.width * 4
+    x, y = M.shard_batch((payload["faces"], payload["labels"]), mesh)
+    x, y = x.to(mesh.device), y.to(mesh.device)
+    reset_counts()
+    rstate, m = step(rstate, x, y)
+    out["c_loss"] = float(m["loss"])
+    full = rstate.state_dict()  # gathered: every rank takes part
+    if lead:
+        torch.save(full, payload["rec_path"])
+    _, out["c_ms"] = timed_ms(lambda: step(rstate, x, y), mesh.device)  # a second step, timed
+    del rstate, full
+    free(mesh.device)
+
+    # (c) recognition.cli train --shard-head over a face folder.
+    t0 = time.perf_counter()
+    from jabd_tpu_torch.recognition import cli as rcli
+
+    rcli.main([str(a) for a in payload["rec_cli"]])
+    out["c_cli_s"] = time.perf_counter() - t0
+    out["k2"]["(c) rec"] = matching_cuda.match_front.launches
+    return out
+
+
+def parallel_phase(card, dev, preset, state):
+    """Drive the data-parallel slice (module docstring, phase 12). Returns
+    the K1 and K2 launches on it (K2 summed over the ranks)."""
+    tmp = tempfile.mkdtemp(prefix="parallel_")
+    try:
+        return _parallel_paths(card, dev, preset, state, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _parallel_paths(card, dev, preset, state, tmp):
+    import dataclasses
+
+    from jabd_tpu_torch import aot, configs
+    from jabd_tpu_torch import train as T
+    from jabd_tpu_torch.data.wider import batch_targets
+    from jabd_tpu_torch.ops import anchors as A
+    from jabd_tpu_torch.ops import nms_cuda
+    from jabd_tpu_torch.parallel import mesh as M
+    from jabd_tpu_torch.parallel import spawn
+    from jabd_tpu_torch.predict import Predictor
+    from jabd_tpu_torch.recognition import train as RT
+    from jabd_tpu_torch.utils.torch_convert import export_state_dict_auto, save_pth
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev.type, 0) if dev.type == "cuda" else dev
+    rng = np.random.default_rng(12)
+    tcfg = configs.TrainConfig(batch_size=PAR_BATCH)
+    size = tcfg.image_size
+    cfg32 = dataclasses.replace(preset, compute_dtype="float32")
+    images = torch.from_numpy(rng.normal(0, 50, (PAR_BATCH, size, size, 3)).astype(np.float32))
+    # Unequal halves: rank 0's images hold many faces, rank 1's few.
+    targets = to_targets(batch_targets(face_rows(rng, [60, 45, 3, 1]), tcfg.max_targets), "cpu")
+    anchors = torch.from_numpy(A.generate_anchors(preset.anchors, (size, size)).copy())
+    rcfg = configs.get_model_config(PAR_FSDP_PRESET)
+    anchors_fsdp = A.generate_anchors(rcfg.anchors, (size, size)).copy()
+
+    # The single-process step on the global batch, on the card.
+    ref, ref_state = det_step_result(cfg32, tcfg, images, targets, anchors, M.Mesh([dev]))
+    check(ref["k2"] > 0, "the single-process step launched K2")
+    ref_path = os.path.join(tmp, "ref.pt")
+    torch.save({k: ref[k] for k in ("metrics", "grads", "stats")}, ref_path)
+    del ref_state
+    free(dev)
+
+    # The recognition reference, as [rectrain] (b) takes it: the step on the
+    # host's CPU with a float64 backbone; and the card's single-process step.
+    faces = torch.from_numpy(((seeded_faces(rng, PAR_REC_BS).astype(np.float32) / 255 - 0.5) / 0.5)[..., ::-1].copy())
+    labels = torch.from_numpy(rng.integers(0, REC_TRAIN_CLASSES, PAR_REC_BS))
+    rec_ref = rec_train_state(PAR_REC_ARCH, "adaface", torch.device("cpu"), dropout=0.0)
+    rec_ref.model.double()
+    start = {n: p.detach().double().cpu().clone() for n, p in rec_ref.named_parameters()}
+    rec_ref, m_ref = RT.make_train_step()(rec_ref, faces, labels)
+    rec_one = rec_train_state(PAR_REC_ARCH, "adaface", dev, dropout=0.0)
+    rec_step = RT.make_train_step()
+    rec_one, m_one = rec_step(rec_one, faces.to(dev), labels.to(dev))
+
+    root = os.path.join(tmp, "faces")
+    write_face_folder(root, rng, PAR_CLI_IDS, PAR_CLI_PER_ID)
+    ck = os.path.join(tmp, "rec_ck")
+    payload = {
+        "images": images, "targets": targets, "anchors": anchors, "anchors_fsdp": anchors_fsdp,
+        "ref_path": ref_path, "fit_dir": os.path.join(tmp, "fit_ck"), "log_dir": os.path.join(tmp, "fit_logs"),
+        "faces": faces, "labels": labels, "rec_path": os.path.join(tmp, "rec.pt"),
+        "rec_cli": ["train", "--data-root", root, "--arch", PAR_REC_ARCH, "--batch-size", PAR_CLI_IDS,
+                    "--epochs", 1, "--checkpoint-dir", ck, "--shard-head", "--device", str(dev)],
+    }
+    t0 = time.perf_counter()
+    ranks = spawn.run("chip_smoke:parallel_rank", 2, payload, os.path.join(tmp, "ranks"), backend="gloo",
+                      device=str(dev), threads=2, timeout=600,
+                      cwd=os.path.dirname(os.path.abspath(__file__)))
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    launches = {path: sum(r["k2"][path] for r in ranks) for path in r0["k2"]}
+    print(f"[parallel] two ranks on {dev}, gloo over {dev.type} tensors: {spawn_s:.1f} s for (a)-(c) with the ranks' "
+          f"start; K2 launches per path, summed over the ranks {launches}, per rank "
+          f"{[r['k2'] for r in ranks]}")
+    for path in ("(a) train_step", "(a) fit", "(b) replicated step", "(b) fsdp step"):
+        check(all(r["k2"][path] > 0 for r in ranks), f"{path}: each rank launched K2")
+    check(launches["(c) rec"] == 0, "the recognition paths launch no K2")
+
+    # (a)
+    g_err, g_name, g_total = r0["a_grad"]
+    print(f"[parallel] (a) jabd_flagship f32 {size}x{size}, global batch {PAR_BATCH} (GTs {[60, 45, 3, 1]}) over 2 "
+          f"ranks against one process on the card: loss terms rel err {r0['a_loss']:.3e} (bound {PAR_LOSS_TOL}), "
+          f"gradients worst {g_err:.3e} ({g_name}) / total {g_total:.3e} (bounds {PAR_GRAD_TOL} / "
+          f"{PAR_GRAD_TOTAL_TOL}), running statistics {r0['a_stat']:.3e} of their bound; ms/step per rank "
+          f"{[round(r['a_ms'], 1) for r in ranks]} (one process {ref['ms']:.1f}; a second step each; both ranks "
+          f"share the card) [{card}]")
+    check(r0["a_loss"] <= PAR_LOSS_TOL and g_err <= PAR_GRAD_TOL and g_total <= PAR_GRAD_TOTAL_TOL
+          and r0["a_stat"] <= 1, "(a) the 2-rank step == the single-process step")
+    rows = open(os.path.join(payload["log_dir"], "metrics.csv")).read().splitlines()
+    print(f"[parallel] (a) fit 2 epochs + resume to 3 ({PAR_FIT_IMAGES} images, bs {PAR_BATCH}): checkpoints "
+          f"{r0['fit_steps']}, steps {r0['fit_step']}, metrics.csv rows {len(rows) - 1}, parameter hashes equal "
+          f"{len({r['fit_hash'] for r in ranks}) == 1}, {r0['fit_s']:.1f} s")
+    check(len({r["fit_hash"] for r in ranks}) == 1, "(a) fit: the ranks' parameters are bit-identical")
+    check(r0["fit_steps"] == [1, 2, 3] and r0["fit_step"] == 3 * (PAR_FIT_IMAGES // PAR_BATCH) and len(rows) == 4,
+          "(a) fit: checkpoints, steps and metrics.csv rows")
+    ck3 = torch.load(os.path.join(payload["fit_dir"], "3.pt"), map_location="cpu", weights_only=True)
+    plain = T.create_train_state(cfg32, tcfg, 1, device="cpu")
+    plain.load_state_dict(ck3)  # the single-process layout
+    # (b)
+    g_err, g_name, g_total = r0["b_grad"]
+    print(f"[parallel] (b) {PAR_FSDP_PRESET} f32 fsdp over 2 ranks against its replicated 2-rank step: loss rel err "
+          f"{r0['b_loss']:.3e}, gradients worst {g_err:.3e} ({g_name}) / total {g_total:.3e}, statistics "
+          f"{r0['b_stat']:.3e} of their bound; {r0['b_n_sharded']} sharded parameters (assert_sharded passed); "
+          f"per-rank parameter + Adam bytes {r0['b_fsdp_bytes']} against replicated {r0['b_rep_bytes']} "
+          f"({r0['b_fsdp_bytes'] / r0['b_rep_bytes']:.3f}); ms/step per rank fsdp "
+          f"{[round(r['b_fsdp_ms'], 1) for r in ranks]}, replicated {[round(r['b_rep_ms'], 1) for r in ranks]} "
+          f"[{card}]")
+    check(r0["b_loss"] <= PAR_LOSS_TOL and g_err <= PAR_GRAD_TOL and g_total <= PAR_GRAD_TOTAL_TOL
+          and r0["b_stat"] <= 1, "(b) the FSDP step == the replicated step")
+    check(r0["b_fsdp_bytes"] < 0.6 * r0["b_rep_bytes"], "(b) FSDP halves the per-rank parameter + Adam bytes")
+    # (c)
+    got = rec_train_state(PAR_REC_ARCH, "adaface", dev, dropout=0.0)  # 70,722 is even: no padding column
+    got.load_state_dict(torch.load(payload["rec_path"], map_location=dev, weights_only=True))
+    errs = {}
+    for tag, st, loss in (("2 ranks", got, r0["c_loss"]), ("one process", rec_one, float(m_one["loss"]))):
+        errs[tag] = (abs(loss / float(m_ref["loss"]) - 1), *_state_errors(st, rec_ref, start))
+    errs["2 ranks against one process"] = (abs(r0["c_loss"] / float(m_one["loss"]) - 1),
+                                           *_state_errors(got, rec_one, start))
+    _, rec_one_ms = timed_ms(lambda: rec_step(rec_one, faces.to(dev), labels.to(dev)), dev)  # a second step
+    parts = [f"{tag}: loss rel err {le:.3e}, worst parameter {pr:.3e} of its bound ({pn}: error {pa:.3e}, change "
+             f"{pm_:.3e}), worst statistic {sr:.3e} of its bound, EMA rel err {ee:.3e}"
+             for tag, (le, (pr, pn, pa, pm_), sr, ee) in errs.items()]
+    print(f"[parallel] (c) {PAR_REC_ARCH} AdaFace over {REC_TRAIN_CLASSES} classes sharded over 2 ranks, bs "
+          f"{PAR_REC_BS}, f32 on the card, against the CPU's step with a float64 backbone ([rectrain] (b)'s "
+          f"reference and bounds): {'; '.join(parts)}; head bytes per rank {r0['c_head_bytes']} of "
+          f"{r0['c_head_full_bytes']}; a second step {r0['c_ms']:.1f} ms per rank (one process {rec_one_ms:.1f} ms) "
+          f"[{card}]")
+    for tag in ("2 ranks", "one process"):
+        loss_err, p_err, s_err, ema_err = errs[tag]
+        check(loss_err <= REC_TRAIN_LOSS_TOL and p_err[0] <= 1 and s_err <= 1 and ema_err <= REC_TRAIN_EMA_TOL,
+              f"(c) {tag}: the step == the CPU's float64 step within [rectrain] (b)'s bounds")
+    check(2 * r0["c_head_bytes"] == r0["c_head_full_bytes"], "(c) each rank holds half of the head")
+    del got, rec_ref, rec_one
+    vdir = os.path.join(tmp, "val")
+    os.makedirs(vdir)
+    write_lfw_bin(os.path.join(vdir, "lfw.bin"), rng, 20)
+    ver = last_json(run_rcli(["verify", "--arch", PAR_REC_ARCH, "--ckpt", os.path.join(ck, "1.pt"),
+                              "--data-dir", vdir, "--batch-size", 16, "--device", dev.type]))
+    print(f"[parallel] (c) recognition.cli train --shard-head on 2 ranks: {r0['c_cli_s']:.1f} s; verify --ckpt "
+          f"1.pt {ver['mean']}")
+    check(0.0 <= ver["lfw"]["val_acc"] <= 1.0, "(c) verify reads the sharded run's checkpoint")
+    free(dev)
+
+    # (d) data-mode serving on a 2-replica mesh on one card.
+    mesh = M.make_mesh([dev, dev])
+    pcfg = configs.PredictConfig(confidence=0.02, input_shape=(PAR_SERVE_SIZE, PAR_SERVE_SIZE))
+    pm = Predictor(preset, state, pcfg, mesh=mesh)
+    half = Predictor(preset, state, pcfg, device=dev)
+    batch = rng.normal(0, 50, (PAR_SERVE_BS, PAR_SERVE_SIZE, PAR_SERVE_SIZE, 3)).astype(np.float32)
+    k1 = {}
+    reset_counts()
+    dm, vm = pm.detect_preprocessed(batch)
+    sync(dev)
+    k1["Predictor(mesh).detect_preprocessed"] = nms_cuda.nms_keep_sorted.launches
+    h = PAR_SERVE_BS // 2
+    parts = [half.detect_preprocessed(batch[:h]), half.detect_preprocessed(batch[h:])]
+    d1, v1 = (torch.cat([p[i] for p in parts]) for i in range(2))
+    check(k1["Predictor(mesh).detect_preprocessed"] == 2, "(d) K1 launched once per replica")
+    check(torch.equal(vm, v1) and torch.equal(dm, d1),
+          "(d) the mesh's detections == one replica's on the same rows at the replica's batch")
+    d8, v8 = half.detect_preprocessed(batch)
+    same = [bool(torch.equal(vm[i], v8[i])) for i in range(PAR_SERVE_BS)]
+    on_card = dev.type == "cuda"
+    x_dev = torch.from_numpy(batch).to(dev)
+    ms_mesh = back_to_back_ms(lambda: pm._detect(x_dev), iters=10) if on_card else float("nan")
+    ms_one = back_to_back_ms(lambda: half._detect(x_dev), iters=10) if on_card else float("nan")
+    print(f"[parallel] (d) Predictor {preset.compute_dtype} {PAR_SERVE_SIZE}x{PAR_SERVE_SIZE} bs {PAR_SERVE_BS} conf "
+          f"0.02 over [{dev}, {dev}]: K1 launches "
+          f"{k1}; detections equal to the single replica at batch {h} on the same rows; against batch "
+          f"{PAR_SERVE_BS} in one replica, keep masks equal in {sum(same)} of {PAR_SERVE_BS} images; "
+          f"back-to-back {ms_mesh:.3f} ms/batch ({1000 * PAR_SERVE_BS / ms_mesh:.1f} img/s) against one replica "
+          f"{ms_one:.3f} ms ({1000 * PAR_SERVE_BS / ms_one:.1f} img/s), both on one card [{card}]")
+    # Each half holds the largest sides, so each replica's bucket is the batch's.
+    mixed = [rng.integers(0, 256, hw + (3,), dtype=np.uint8) for hw in ((480, 640), (720, 1280), (333, 517),
+                                                                          (720, 1280))]
+    reset_counts()
+    got_imgs = pm.detect_images(mixed)
+    sync(dev)
+    k1["Predictor(mesh).detect_images"] = nms_cuda.nms_keep_sorted.launches
+    want_imgs = half.detect_images(mixed[:2]) + half.detect_images(mixed[2:])
+    check(k1["Predictor(mesh).detect_images"] == 2, "(d) detect_images: K1 once per replica")
+    check(all(g.shape == w.shape and np.array_equal(g, w) for g, w in zip(got_imgs, want_imgs)),
+          "(d) detect_images over the mesh == one replica's, each replica letterboxing its own rows")
+    art = aot.export_detector(half, os.path.join(tmp, "art"), batch_size=h)
+    det = aot.load_exported(art, mesh=mesh)
+    reset_counts()
+    da, va = det.detect_preprocessed(batch)
+    sync(dev)
+    k1["AotDetector(mesh)"] = nms_cuda.nms_keep_sorted.launches
+    check(det.batch_size == PAR_SERVE_BS and k1["AotDetector(mesh)"] == 2, "(d) the artifact over the mesh: K1 per program")
+    check(torch.equal(va, vm), "(d) the artifact's keep masks == the live mesh Predictor's")
+    print(f"[parallel] (d) detect_images on {len(mixed)} mixed sizes and the artifact (batch {h} a program) over "
+          f"the mesh: equal to one replica / the live mesh; max det err of the artifact "
+          f"{float((da - dm).abs()[va].max()) if bool(va.any()) else 0.0:.3e}")
+    # cli map-txt --data-parallel against the plain dump at the replica's batch.
+    val = os.path.join(tmp, "wider", "0--Parade")
+    os.makedirs(val)
+    from PIL import Image
+
+    for i in range(8):
+        Image.fromarray(smooth_image(rng, 360 + 20 * i, 640)).save(os.path.join(val, f"img_{i}.png"))
+    fpth = os.path.join(tmp, "flagship.pth")
+    save_pth(export_state_dict_auto(state, preset), fpth)
+    common = ["map-txt", "--model", "jabd_flagship", "--weights", fpth, "--input-size", PAR_SERVE_SIZE,
+              "--confidence", 0.02,
+              "--val-dir", os.path.dirname(val)]
+    reset_counts()
+    run_cli(common + ["--out", os.path.join(tmp, "dp"), "--batch-size", 4, "--data-parallel",
+                      "--device", f"{dev},{dev}"])
+    k1["cli map-txt --data-parallel"] = nms_cuda.nms_keep_sorted.launches
+    run_cli(common + ["--out", os.path.join(tmp, "plain"), "--batch-size", 2, "--device", str(dev)])
+    dp, pl = read_dumps(os.path.join(tmp, "dp")), read_dumps(os.path.join(tmp, "plain"))
+    check(k1["cli map-txt --data-parallel"] == 4, "(d) map-txt: K1 per replica per chunk")
+    check(dp.keys() == pl.keys() and all(np.array_equal(dp[k], pl[k]) for k in pl),
+          "(d) cli map-txt --data-parallel == the plain dump at the replica's batch")
+    # extraction over the mesh against one device.
+    calib = torch.from_numpy(((seeded_faces(rng, 8).astype(np.float32) / 255 - 0.5) / 0.5)).permute(0, 3, 1, 2)
+    ir = seeded_ir_model(PAR_REC_ARCH, 0, dev, calib.to(dev))
+    crops = ((seeded_faces(rng, 64).astype(np.float32) / 255 - 0.5) / 0.5)
+    em, nm = RT.extract_embeddings_tta(ir, crops, batch_size=32, mesh=mesh)
+    e1, n1 = RT.extract_embeddings_tta(ir, crops, batch_size=16, device=dev)
+    print(f"[parallel] (d) cli map-txt --data-parallel over 8 images: {sum(len(v) for v in dp.values())} rows, "
+          f"equal to the plain dump; extract_embeddings_tta {PAR_REC_ARCH} 64 crops over the mesh (bs 32) against "
+          f"one device (bs 16): max abs err {float(np.abs(em - e1).max()):.3e}; K1 launches {k1}; "
+          f"{time.perf_counter() - t_phase:.1f} s for the phase")
+    check(np.array_equal(em, e1) and np.array_equal(nm, n1), "(d) extraction over the mesh == one device")
+    return {"k1": sum(k1.values()), "k2": sum(launches.values()) + ref["k2"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3409,14 +3875,17 @@ def main() -> int:
     # -- phase 11: the recognition training path -----------------------------
     rectrain = rectrain_phase(card, dev)
 
-    # -- phase 12: the kernels line ------------------------------------------
+    # -- phase 12: data parallelism ------------------------------------------
+    par = parallel_phase(card, dev, preset, state)
+
+    # -- phase 13: the kernels line ------------------------------------------
     kernels = [{
         "name": "nms_keep_sorted",
         "route": "cuda",
         "source": "jabd_tpu_torch/csrc/nms.cu",
         "replaces": "jabd_tpu/ops/nms_pallas.py:42",
         "launches": (main_launches + k1_wider["launches"] + k1_presets["launches"] + app["k1"] + rec["launches"]
-                     + rectrain["k1"]),
+                     + rectrain["k1"] + par["k1"]),
         "max_abs_err": max(worst, k1_wider["max_abs_err"], k1_presets["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
@@ -3428,7 +3897,7 @@ def main() -> int:
         "route": "cuda",
         "source": "jabd_tpu_torch/csrc/matching.cu",
         "replaces": "jabd_tpu/ops/matching_pallas.py:37",
-        **{**k2, "launches": k2["launches"] + app["k2"] + rectrain["k2"]},
+        **{**k2, "launches": k2["launches"] + app["k2"] + rectrain["k2"] + par["k2"]},
         # No single torch call computes the front half (per-prior best GT
         # and per-GT best prior over the IoU matrix).
         "library_ms": None,

@@ -21,8 +21,9 @@ side imports this module and that operator's registration only.
 or ("cpu",): an exported graph holds its device in its constants and
 weights, so an artifact runs where it was exported and is refused
 elsewhere. A Predictor switched to int8 (`quantize_int8`), or a folded or
-int8 embedder, exports the graph it runs. Serving one artifact over
-several cards comes with the parallelism slice.
+int8 embedder, exports the graph it runs. A detector artifact serves
+data-parallel over a local mesh (`load_exported(mesh=)`): one loaded
+program per mesh entry, each running the exported batch.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 from jabd_tpu_torch import resolve_device
 from jabd_tpu_torch.ops import image as I
 from jabd_tpu_torch.ops import nms_cuda  # noqa: F401  (registers jabd::nms_keep_sorted)
+from jabd_tpu_torch.parallel import mesh as M
 
 ARTIFACT_VERSION = 1
 _GRAPH = "graph.pt2"
@@ -111,13 +113,20 @@ def export_detector(
 class AotDetector:
     """Serving-side twin of `Predictor`, driven by an artifact only:
     `detect_preprocessed` at the exported batch size, `detect_image` for
-    one image (padded to that batch)."""
+    one image (padded to that batch).
 
-    def __init__(self, program, manifest: dict, device: torch.device):
-        self._fn = program.module()
+    With a local `mesh` of size > 1 there is one program per mesh entry
+    (`programs`) and the artifact's batch is each one's: `batch_size` is
+    artifact batch x mesh size, split across them, the rows concatenated
+    on the first device."""
+
+    def __init__(self, programs, manifest: dict, device: torch.device, mesh: Optional[M.Mesh] = None):
+        programs = programs if isinstance(programs, (list, tuple)) else [programs]
+        self._fns = [p.module() for p in programs]
         self.manifest = manifest
+        self.mesh = mesh if M.is_local_sharded(mesh) else None
         self.device = device
-        self.batch_size = int(manifest["batch_size"])
+        self.batch_size = int(manifest["batch_size"]) * len(self._fns)
         self.input_shape = tuple(manifest["input_shape"])
         self.letterbox = bool(manifest["pcfg"]["letterbox"])
 
@@ -128,9 +137,13 @@ class AotDetector:
         b = images.shape[0]
         if b != self.batch_size:
             raise ValueError(f"artifact was exported for batch {self.batch_size}, got {b}")
-        x = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+        x = torch.as_tensor(images, dtype=torch.float32)
+        if self.mesh is None:
+            with torch.no_grad():
+                return self._fns[0](x.to(self.device))
         with torch.no_grad():
-            return self._fn(x)
+            outs = [fn(part) for fn, part in zip(self._fns, M.shard_batch(x, self.mesh))]
+        return tuple(torch.cat([o[i].to(self.device) for o in outs]) for i in range(2))
 
     def detect_image(self, image: np.ndarray) -> np.ndarray:
         """One [H, W, 3] uint8/float image -> [N, 15] pixel-space dets
@@ -215,11 +228,16 @@ class AotEmbedder:
 _KINDS = {"detector": AotDetector, "embedder": AotEmbedder}
 
 
-def load_exported(out_dir: str, device=None):
+def load_exported(out_dir: str, device=None, mesh: Optional[M.Mesh] = None):
     """Load an artifact directory to run on `device` (the card unless
     given): an AotDetector or an AotEmbedder, by the manifest's kind.
     Raises ValueError for an artifact of a newer version or an unknown
-    kind, or one exported for another device type."""
+    kind, or one exported for another device type.
+
+    `mesh` (a detector over a local mesh of size > 1): one program per
+    mesh entry, moved to that entry's device where it differs from the
+    export's (`torch.export.passes.move_to_device_pass`); the first entry
+    is the device."""
     with open(os.path.join(out_dir, _MANIFEST)) as f:
         manifest = json.load(f)
     if manifest["version"] > ARTIFACT_VERSION:
@@ -228,10 +246,28 @@ def load_exported(out_dir: str, device=None):
         )
     if manifest["kind"] not in _KINDS:
         raise ValueError(f"unknown artifact kind {manifest['kind']!r}")
-    dev = resolve_device(device)
-    if dev.type not in manifest["platforms"]:
-        raise ValueError(
-            f"artifact was exported for {manifest['platforms']}, but it is loaded for {dev.type!r}"
-        )
-    program = torch.export.load(os.path.join(out_dir, _GRAPH))
-    return _KINDS[manifest["kind"]](program, manifest, dev)
+    devices = mesh.devices if mesh is not None else [resolve_device(device)]
+    mesh = mesh if M.is_local_sharded(mesh) else None
+    for dev in devices:
+        if dev.type not in manifest["platforms"]:
+            raise ValueError(
+                f"artifact was exported for {manifest['platforms']}, but it is loaded for {dev.type!r}"
+            )
+    path = os.path.join(out_dir, _GRAPH)
+    if mesh is None:
+        return _KINDS[manifest["kind"]](torch.export.load(path), manifest, devices[0])
+    if manifest["kind"] != "detector":
+        raise ValueError("a mesh serves detector artifacts only")
+    programs = [_on_device(torch.export.load(path), dev) for dev in devices]
+    return AotDetector(programs, manifest, devices[0], mesh)
+
+
+def _on_device(program, device: torch.device):
+    """`program` with its weights and constants on `device` (moved only
+    where they lie elsewhere)."""
+    tensors = list(program.state_dict.values()) + list(program.constants.values())
+    if all(not isinstance(t, torch.Tensor) or t.device == device for t in tensors):
+        return program
+    from torch.export.passes import move_to_device_pass
+
+    return move_to_device_pass(program, device)

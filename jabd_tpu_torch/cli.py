@@ -24,9 +24,16 @@ seeded random init and a `[warn]` says so. Images are decoded with PIL as
 imports cv2 (for VideoCapture / VideoWriter), when it runs.
 
 `identify` and `serve --arch` load their IR embedder as the recognition
-CLI does (recognition/cli.py::_load_backbone). `--spatial`,
-`--data-parallel` and `--fsdp` wait for the parallelism slice: each exits
-with a message naming it.
+CLI does (recognition/cli.py::_load_backbone).
+
+`--data-parallel` (serve, dir-predict, map-txt) serves over a local mesh:
+one replica per card, each batch split across them (the mesh shrinks until
+it divides --batch-size, as in the JAX CLI); `--device` may name the
+mesh's devices, comma-separated and repeatable (`--device cpu,cpu`).
+`train` under torchrun (`python -m torch.distributed.run --nproc-per-node
+N -m jabd_tpu_torch.cli train ...`) trains over the process group, with
+`--fsdp` sharding parameters and Adam moments. `--spatial` waits for the
+spatial slice: it exits with a message naming it.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import os
 import sys
 import time
 
-PARALLEL = "the parallelism slice"
+SPATIAL = "the spatial slice"
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
 
@@ -85,15 +92,38 @@ def _load_state_dict(args, mcfg):
 
 
 def _check_parallel_flags(args):
-    for flag in ("spatial", "data_parallel"):
-        if getattr(args, flag, False):
-            _not_yet("--" + flag.replace("_", "-"), PARALLEL)
+    if getattr(args, "spatial", False) and getattr(args, "data_parallel", False):
+        raise SystemExit(
+            "--spatial and --data-parallel are mutually exclusive "
+            "(one mesh axis: pick batch- or height-sharding)"
+        )
+    if getattr(args, "spatial", False):
+        _not_yet("--spatial", SPATIAL)
+
+
+def _serving_mesh(args):
+    """With --data-parallel, the local mesh over --device's comma-separated
+    devices (each card once without --device), shrunk until it divides
+    --batch-size; else None. Sets args.device to the mesh's first device."""
+    devices = [d.strip() for d in args.device.split(",")] if args.device else None
+    if not getattr(args, "data_parallel", False):
+        if devices and len(devices) > 1:
+            sys.exit("several --device entries need --data-parallel")
+        return None
+    from jabd_tpu_torch.parallel.mesh import make_mesh_for_batch
+
+    mesh = make_mesh_for_batch(max(getattr(args, "batch_size", 1), 1), devices)
+    args.device = str(mesh.devices[0])
+    if mesh.size > 1:
+        print(f"[mesh] serving sharded over {mesh.size} devices", file=sys.stderr)
+    return mesh
 
 
 def _load_predictor(args):
     from jabd_tpu_torch import configs
     from jabd_tpu_torch.predict import Predictor
 
+    mesh = _serving_mesh(args)
     mcfg = _get_config(args.model)
     state = _load_state_dict(args, mcfg)
     pcfg = configs.PredictConfig(
@@ -101,7 +131,7 @@ def _load_predictor(args):
         nms_iou=args.nms_iou,
         input_shape=(args.input_size, args.input_size),
     )
-    return Predictor(mcfg, state, pcfg, device=args.device)
+    return Predictor(mcfg, state, pcfg, device=args.device, mesh=mesh)
 
 
 def _draw(image, dets):
@@ -215,7 +245,8 @@ def cmd_serve(args):
     if args.exported:
         from jabd_tpu_torch.aot import load_exported
 
-        backend = load_exported(args.exported, device=args.device)
+        mesh = _serving_mesh(args)
+        backend = load_exported(args.exported, device=args.device, mesh=mesh)
     else:
         backend = _load_predictor(args)
     det = BatchingDetector(backend, batch_size=args.batch_size, max_wait_ms=args.max_wait_ms)
@@ -518,10 +549,11 @@ def cmd_eval(args):
 def cmd_train(args):
     from jabd_tpu_torch import configs, train
     from jabd_tpu_torch.data.wider import WiderFaceDataset
+    from jabd_tpu_torch.parallel import mesh as M
     from jabd_tpu_torch.utils.checkpoint import CheckpointManager
 
-    if args.fsdp:
-        _not_yet("--fsdp", PARALLEL)
+    # The process group torchrun describes (gloo for --device cpu); a no-op alone.
+    M.init_distributed(backend="gloo" if (args.device or "").startswith("cpu") else None)
     mcfg = _get_config(args.model)
     tcfg = configs.TrainConfig(
         batch_size=args.batch_size,
@@ -532,6 +564,7 @@ def cmd_train(args):
         save_period=args.save_period,
         microbatches=args.microbatches,
         matching_impl=args.matching_impl,
+        fsdp=args.fsdp,
     )
     ds = WiderFaceDataset(args.label_txt, input_size=tcfg.image_size)
     mgr = CheckpointManager(args.ckpt_dir)
@@ -564,7 +597,7 @@ def build_parser() -> argparse.ArgumentParser:
             help="with --quantize int8: grid-search a global activation clip ratio "
             "by end-to-end output error on the calibration images",
         )
-        sp.add_argument("--spatial", action="store_true", help=f"spatial partitioning over cards ({PARALLEL})")
+        sp.add_argument("--spatial", action="store_true", help=f"spatial partitioning over cards ({SPATIAL})")
         device(sp)
 
     sp = sub.add_parser("predict")
@@ -598,7 +631,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--max-wait-ms", type=float, default=15.0,
         help="max time to wait for batch-mates after the first request",
     )
-    sp.add_argument("--data-parallel", action="store_true", help=f"shard batches over cards ({PARALLEL})")
+    sp.add_argument("--data-parallel", action="store_true", help="serve over a local mesh: a replica per card (or per --device entry), batches split across them")
     sp.add_argument(
         "--arch", default="",
         help="IR embedder arch (e.g. ir_50): enables POST /identify (detect -> align -> embed -> name)",
@@ -621,7 +654,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--batch-size", type=int, default=1,
         help=">1 batches mixed-size images through one detect graph (letterbox on the device)",
     )
-    sp.add_argument("--data-parallel", action="store_true", help=f"shard batches over cards ({PARALLEL})")
+    sp.add_argument("--data-parallel", action="store_true", help="serve over a local mesh: a replica per card (or per --device entry), batches split across them")
     sp.set_defaults(fn=cmd_dir_predict)
 
     sp = sub.add_parser(
@@ -677,7 +710,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--val-dir", required=True)
     sp.add_argument("--out", required=True)
     sp.add_argument("--batch-size", type=int, default=1, help=">1 runs the batched val sweep")
-    sp.add_argument("--data-parallel", action="store_true", help=f"shard batches over cards ({PARALLEL})")
+    sp.add_argument("--data-parallel", action="store_true", help="serve over a local mesh: a replica per card (or per --device entry), batches split across them")
     sp.add_argument("--multiscale", action="store_true", help="bicubic image-pyramid eval")
     sp.add_argument(
         "--pyramid", choices=("device", "host"), default="host",
@@ -715,7 +748,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--matching-impl", choices=["auto", "plain", "cuda"], default="auto",
         help="anchor matching: 'auto' = the CUDA kernel on the card, the plain version on the CPU",
     )
-    sp.add_argument("--fsdp", action="store_true", help=f"shard parameters and Adam moments ({PARALLEL})")
+    sp.add_argument(
+        "--fsdp", action="store_true",
+        help="over a process group of N > 1 (torchrun): shard large parameters and their Adam moments "
+        "1/N per rank (parallel/fsdp.py, the JAX package's leaf rule)",
+    )
     device(sp)
     sp.set_defaults(fn=cmd_train)
     return p

@@ -129,9 +129,10 @@ class TrainConfig:
     (Adam lr 1e-3 freeze / 1e-4 unfreeze, weight decay 5e-4, StepLR
     gamma 0.92/epoch), MultiBoxLoss(2, 0.35, 7) at :475, loc_weight 2.0.
     Every field and default of the JAX package's TrainConfig. The port's
-    `train.py` runs `remat`, `microbatches > 1` and `device_augment`, alone
-    or combined; it raises NotImplementedError for `fsdp`, which the
-    parallelism slice brings.
+    `train.py` runs `remat`, `microbatches > 1`, `device_augment` and,
+    over a process group of more than one rank, `fsdp` (parallel/fsdp.py),
+    alone or combined; on one process `fsdp` is the plain path, as in the
+    JAX package's fit.
     """
 
     batch_size: int = 34

@@ -139,10 +139,26 @@ def run_wider_val(
 
     Unlike the JAX package, the last chunk is not padded to `batch_size`
     (a batch of any size runs the same graph here), so the partial batch
-    costs only its own images."""
+    costs only its own images; over a mesh Predictor (`Predictor(mesh=)`)
+    it is padded with zero frames to a multiple of the mesh size, and
+    `batch_size` must divide it."""
     if pyramid not in ("host", "device"):
         raise ValueError(f"pyramid must be 'host' or 'device', got {pyramid!r}")
     items = _items(val_dir)
+    mesh = getattr(predictor, "mesh", None)
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"batch size {batch_size} must divide the serving mesh size {mesh.size}")
+
+    def detect(frames):
+        """predictor.detect_preprocessed on the chunk's frames, padded to
+        the mesh, as host arrays of the chunk's rows."""
+        n = len(frames)
+        pad = -n % mesh.size if mesh is not None else 0
+        if pad:
+            frames = torch.as_tensor(frames)
+            frames = torch.cat([frames, frames.new_zeros((pad, *frames.shape[1:]))])
+        return (t[:n].cpu().numpy() for t in predictor.detect_preprocessed(frames))
+
     th, tw = predictor.pcfg.input_shape
     letterbox = predictor.pcfg.letterbox
     preds: Dict[str, Dict[str, np.ndarray]] = {}
@@ -203,7 +219,7 @@ def run_wider_val(
                     else:
                         frames = np.stack([ps[si][0] for _, _, ps in loaded])
                         sizes = [ps[si][1] for _, _, ps in loaded]
-                    dets_b, valid_b = (t.cpu().numpy() for t in predictor.detect_preprocessed(frames))
+                    dets_b, valid_b = detect(frames)
                     for i, ((oh, ow), (sh, sw)) in enumerate(zip((ld[1] for ld in loaded), sizes)):
                         d = dets_b[i][valid_b[i]]
                         if len(d):
@@ -215,7 +231,7 @@ def run_wider_val(
                     store(*ld[0], _merge_scales(predictor, merged[i]))
             else:
                 batch = np.stack([x for _, _, x in loaded])
-                dets_b, valid_b = (t.cpu().numpy() for t in predictor.detect_preprocessed(batch))
+                dets_b, valid_b = detect(batch)
                 for i, ((event, name), (ih, iw), _) in enumerate(loaded):
                     d = dets_b[i][valid_b[i]]
                     if len(d):

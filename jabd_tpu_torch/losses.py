@@ -14,6 +14,11 @@ dense masked arithmetic over the batch, with:
   * cross-entropy over positives + mined negatives, normalized by
     N = max(num_pos, 1); landmarks by N1 = max(num_pos1, 1);
   * total = loc_weight * loss_l + loss_c + loss_landm.
+
+Over a process mesh (`matching_mesh`, parallel/mesh.py) each rank matches
+its own rows (K2 on the card, as the JAX package runs its Pallas matching
+per shard under shard_map) and N, N1 are the sums over the mesh, so the
+terms of the ranks add up to the terms of the global batch.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from jabd_tpu_torch.ops import boxes as B
 from jabd_tpu_torch.ops import matching
 from jabd_tpu_torch.ops import matching_cuda
+from jabd_tpu_torch.parallel import mesh as M
 
 MATCHING_IMPLS = ("auto", "cuda", "plain")
 
@@ -70,11 +76,12 @@ def multibox_loss(
 
     predictions: (loc [B, P, 4], conf logits [B, P, 2], landm [B, P, 10]),
     float32. Matching sees only targets and priors, so no gradient flows
-    through it."""
-    if matching_mesh is not None:
-        raise NotImplementedError(
-            "matching over a device mesh comes with the parallelism slice"
-        )
+    through it.
+
+    `matching_mesh`: the process mesh the batch is sharded over; the
+    predictions and targets are this rank's rows and the terms are its
+    share of the global batch's (their sum over the ranks). A mesh of size
+    1 is the plain path."""
     loc_data, conf_data, landm_data = predictions
     num_priors = conf_data.shape[1]
 
@@ -119,8 +126,9 @@ def multibox_loss(
         sel = pos | (idx_rank < num_neg)
     loss_c = torch.sum(torch.where(sel, ce, 0.0))
 
-    n = torch.clamp(torch.sum(num_pos).float(), min=1.0)
-    n1 = torch.clamp(torch.sum(pos1).float(), min=1.0)
+    counts = M.all_reduce(torch.stack([torch.sum(num_pos), torch.sum(pos1)]).float(), matching_mesh)
+    n = torch.clamp(counts[0], min=1.0)
+    n1 = torch.clamp(counts[1], min=1.0)
     return {
         "loss_l": loss_l / n,
         "loss_c": loss_c / n,

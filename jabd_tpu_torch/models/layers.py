@@ -21,6 +21,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from jabd_tpu_torch.ops import resize as R
+from jabd_tpu_torch.parallel import mesh as M
 
 BN_EPS = 1e-5
 
@@ -129,6 +130,67 @@ class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):
 
     def __init__(self, num_features: int, affine: bool = True):
         super().__init__(num_features, eps=BN_EPS, momentum=0.1, affine=affine)
+
+
+class _SyncFlaxBatchNorm:
+    """Training-mode BatchNorm over the global batch of a process mesh.
+
+    Per channel, the sum of x and the count, then the sum of (x - mean)^2,
+    are all-reduced over the mesh with their gradient
+    (`parallel.mesh.all_reduce_sum`): the batch is normalized with the
+    global mean and BIASED variance, and the running statistics fold those
+    with flax's rule (running_var takes the biased variance, so no n / (n -
+    1) and no local n), as flax's BatchNorm does when GSPMD shards the batch
+    of the JAX package's step. Statistics are float32 at least, whatever
+    autocast says. On a mesh of size 1, and in eval mode, the module is the plain
+    BatchNorm it replaced."""
+
+    mesh = None
+
+    def forward(self, x):
+        if not (self.training and self.mesh is not None and self.mesh.size > 1):
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+        c = xf.shape[1]
+        count = torch.full((1,), xf.numel() // c, dtype=xf.dtype, device=x.device)
+        s1 = M.all_reduce_sum(torch.cat([xf.sum(dims), count]), self.mesh)
+        n = s1[c]
+        mean = s1[:c] / n
+        var = M.all_reduce_sum(((xf - mean.view(shape)) ** 2).sum(dims), self.mesh) / n
+        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        if self.affine:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        if self.track_running_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean = (1.0 - m) * self.running_mean + m * mean.detach()
+                self.running_var = (1.0 - m) * self.running_var + m * var.detach()
+                self.num_batches_tracked = self.num_batches_tracked + 1
+        return y.to(x.dtype)
+
+
+class SyncBatchNorm2d(_SyncFlaxBatchNorm, BatchNorm2d):
+    """BatchNorm2d whose training statistics span the mesh."""
+
+
+class SyncBatchNorm1d(_SyncFlaxBatchNorm, BatchNorm1d):
+    """BatchNorm1d whose training statistics span the mesh."""
+
+
+def convert_sync_batchnorm(model: nn.Module, mesh) -> nn.Module:
+    """Make every BatchNorm2d / BatchNorm1d of `model` synchronized over
+    `mesh`, in place (the class is swapped, so the state dict keeps its
+    names and values). Idempotent; returns the model."""
+    for m in model.modules():
+        if type(m) is BatchNorm2d:
+            m.__class__ = SyncBatchNorm2d
+        elif type(m) is BatchNorm1d:
+            m.__class__ = SyncBatchNorm1d
+        if isinstance(m, _SyncFlaxBatchNorm):
+            m.mesh = mesh
+    return model
 
 
 class ConvBN(nn.Module):

@@ -3,8 +3,9 @@
 Port of `postprocess_outputs`, `detect_batch`, `undo_letterbox_pixels`
 and `Predictor` (`__init__`, `detect_preprocessed`, `detect_images`,
 `detect_image`, `detect_multiscale`, `quantize_int8`, `get_fps`,
-`get_map_txt_rows`) of `jabd_tpu/predict.py`; the JAX Predictor's mesh
-modes wait for the parallelism slice. One
+`get_map_txt_rows`) of `jabd_tpu/predict.py`, with its data-parallel
+mesh mode (a replica per mesh entry, the batch split across them, K1 in
+each); its spatial mode waits for the spatial slice. One
 batch runs on the device as forward -> top-k of the scores -> decode ->
 greedy NMS (the CUDA kernel on the card) -> compaction to fixed
 [B, max_detections, 15] rows plus a valid mask; the host letterboxes
@@ -32,6 +33,9 @@ from jabd_tpu_torch.ops import image as I
 from jabd_tpu_torch.ops import nms as N
 from jabd_tpu_torch.ops import nms_cuda
 from jabd_tpu_torch.ops.image import undo_letterbox_pixels
+from jabd_tpu_torch.parallel import mesh as M
+
+SPATIAL = "the spatial slice"
 
 
 def select_candidates(
@@ -127,6 +131,15 @@ class Predictor:
     in the JAX package) the BatchNorms are folded into the convs, then a
     bfloat16 preset casts the folded weights. Runs on the card unless
     `device` is given. Raises ValueError for a model with an IoU head.
+
+    `mesh`: a local mesh (parallel/mesh.py::make_mesh) of size > 1 serves
+    data-parallel, the reference's `nn.DataParallel` wrap: one replica of
+    the (folded, cast) model per mesh entry, the first on `mesh.devices[0]`
+    (which is then `device`); each batch is split across the replicas,
+    each runs the whole detect graph on its rows (K1 per replica on the
+    card), and the rows are concatenated on the first device. Batches must
+    divide the mesh size. `partition="spatial"` (the height axis sharded)
+    raises NotImplementedError: it comes with the spatial slice.
     """
 
     def __init__(
@@ -136,13 +149,20 @@ class Predictor:
         predict_cfg: Optional[configs.PredictConfig] = None,
         fold_bn: bool = True,
         device=None,
+        mesh: Optional[M.Mesh] = None,
+        partition: str = "data",
     ):
         if model_cfg.with_iou_head:
             raise ValueError(
                 f"model {model_cfg.name!r} has an IoU head (a fourth output); "
                 "detection takes (loc, conf, landm) only, as in the JAX package"
             )
-        self.device = resolve_device(device)
+        if partition not in ("data", "spatial"):
+            raise ValueError(f"partition must be 'data' or 'spatial', got {partition!r}")
+        if partition == "spatial":
+            raise NotImplementedError(f"the PyTorch port does not have yet: spatial partitioning: {SPATIAL}")
+        self.mesh = mesh if M.is_local_sharded(mesh) else None
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         self.mcfg = model_cfg
         self.pcfg = predict_cfg or configs.PredictConfig()
         model = build_model(model_cfg, mode="eval", device=self.device)
@@ -151,26 +171,55 @@ class Predictor:
         if fold_bn:
             fold_batchnorm(model)
         self.model = model.to(DTYPES[model_cfg.compute_dtype])
+        self._replicate()
         self._anchors = {}
 
-    def _anchors_for(self, hw: Tuple[int, int]) -> torch.Tensor:
-        if hw not in self._anchors:
-            self._anchors[hw] = torch.from_numpy(
+    def _replicate(self) -> None:
+        """One copy of the model per further mesh entry."""
+        self.replicas = [self.model]
+        if self.mesh is not None:
+            self.replicas += M.replicate_tree(self.model, M.Mesh(self.mesh.devices[1:]))
+
+    def _anchors_for(self, hw: Tuple[int, int], device=None) -> torch.Tensor:
+        device = torch.device(device or self.device)
+        if (hw, device) not in self._anchors:
+            self._anchors[hw, device] = torch.from_numpy(
                 A.generate_anchors(self.mcfg.anchors, hw).copy()
-            ).to(self.device)
-        return self._anchors[hw]
+            ).to(device)
+        return self._anchors[hw, device]
+
+    def _check_batch(self, b: int) -> None:
+        if self.mesh is not None and b % self.mesh.size:
+            raise ValueError(
+                f"batch size {b} must divide the serving mesh size "
+                f"{self.mesh.size} (pad the batch or shrink the mesh)"
+            )
+
+    def _detect_parts(self, parts):
+        """One [b, H, W, 3] float32 tensor per replica, on its device ->
+        (dets, valid) of their rows in order, on the first device. Every
+        replica's graph is launched before any result is read."""
+        outs = []
+        with torch.inference_mode():
+            for model, images in zip(self.replicas, parts):
+                hw = tuple(images.shape[1:3])
+                outs.append(detect_batch(
+                    model,
+                    images.permute(0, 3, 1, 2),
+                    self._anchors_for(hw, images.device),
+                    self.pcfg,
+                    self.mcfg.anchors.variance,
+                ))
+            if len(outs) == 1:
+                return outs[0]
+            return tuple(torch.cat([o[i].to(self.device) for o in outs]) for i in range(2))
 
     def _detect(self, images: torch.Tensor):
         """[B, H, W, 3] float32 tensor on the device -> (dets, valid)."""
-        hw = tuple(images.shape[1:3])
-        with torch.inference_mode():
-            return detect_batch(
-                self.model,
-                images.permute(0, 3, 1, 2),
-                self._anchors_for(hw),
-                self.pcfg,
-                self.mcfg.anchors.variance,
-            )
+        if self.mesh is None:
+            return self._detect_parts([images])
+        self._check_batch(images.shape[0])
+        return self._detect_parts(M.shard_batch(images, self.mesh))
 
     # -- entry points --------------------------------------------------------
 
@@ -198,11 +247,14 @@ class Predictor:
         padded, parts = zip(
             *(I.plan_letterbox(im, (th, tw), (bh, bw), self.pcfg.letterbox) for im in images)
         )
-        src = torch.from_numpy(np.stack(padded)).to(self.device)
-        mv, mh, iv, ih = (torch.from_numpy(np.stack(p)).to(self.device) for p in zip(*parts))
+        self._check_batch(len(images))
+        inputs = tuple(torch.from_numpy(np.stack(p)) for p in (padded, *zip(*parts)))
+        # Each replica letterboxes its own rows on its device.
+        pieces = M.shard_batch(inputs, self.mesh) if self.mesh is not None else [
+            tuple(t.to(self.device) for t in inputs)]
         with torch.inference_mode():
-            frames = I.letterbox_batch_device(src, mv, mh, iv, ih)
-        dets_b, valid_b = self._detect(frames)
+            frames = [I.letterbox_batch_device(*piece) for piece in pieces]
+        dets_b, valid_b = self._detect_parts(frames)
         dets_b, valid_b = dets_b.cpu().numpy(), valid_b.cpu().numpy()
         return [
             undo_letterbox_pixels(dets_b[i][valid_b[i]], (th, tw), im.shape[:2], self.pcfg.letterbox)
@@ -263,7 +315,9 @@ class Predictor:
         ratio = 1.0
         if search_clip:
             ratio, _ = Q.search_clip_ratio(self.model, calib, [x], score_fn=score_fn)
-        return Q.quantize_model(self.model, calib, clip_ratio=ratio)
+        n = Q.quantize_model(self.model, calib, clip_ratio=ratio)
+        self._replicate()
+        return n
 
     def get_fps(self, image: np.ndarray, test_interval: int = 100, method: str = "chained") -> float:
         """Images per second of the detect graph (forward + postprocess)

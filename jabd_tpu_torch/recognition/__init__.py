@@ -4,8 +4,8 @@ augmentation on the host (data.py) and on the card (device_augment.py),
 the SGD train step and `fit` (train.py), BatchNorm folding, the ArcFace
 alignment, the reference's checkpoint names, the verification, TinyFace
 and IJB-S evaluators and the recognition CLI. Port of
-`jabd_tpu/recognition`; its class-sharded head (parallel.py) comes with the
-parallelism slice.
+`jabd_tpu/recognition`, with its class-sharded head over a process group
+(parallel.py).
 """
 
 from jabd_tpu_torch.recognition.heads import build_head  # noqa: F401

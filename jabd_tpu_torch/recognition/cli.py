@@ -15,8 +15,13 @@ by recognition/torch_convert.py) or a state dict of the port saved with
 `torch.save`; without it the weights are a seeded random init and a
 `[warn]` says so. `train` writes `<checkpoint-dir>/<epoch>.pt` with the
 backbone's state dict under "model", which `--ckpt` of the other commands
-reads. `train --shard-head` / `--fsdp` and `extract --data-parallel` wait
-for the parallelism slice: each exits naming it.
+reads. `train --shard-head [--fsdp]` trains with the head sharded along
+classes over the process group (`python -m torch.distributed.run
+--nproc-per-node N -m jabd_tpu_torch.recognition.cli train --shard-head
+...`; recognition/parallel.py), the backbone FSDP-sharded with --fsdp;
+alone it is the plain step. `extract --data-parallel` splits each batch
+over a local mesh: one replica per card, or per comma-separated --device
+entry (`--device cpu,cpu`).
 """
 
 from __future__ import annotations
@@ -24,13 +29,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-PARALLEL = "the parallelism slice"
-
-
-def _not_yet(what: str, slice_name: str):
-    sys.exit(f"the PyTorch port does not have yet: {what}: {slice_name}")
-
 
 def calibration_faces(n: int = 8, size: int = 112):
     """[n, 3, size, size] normalized random faces, seeded: the
@@ -127,33 +125,57 @@ def cmd_train(args):
     import torch
 
     from jabd_tpu_torch import resolve_device
+    from jabd_tpu_torch.parallel import mesh as M
     from jabd_tpu_torch.recognition import build_head, build_model
     from jabd_tpu_torch.recognition import train as RT
     from jabd_tpu_torch.recognition.data import ImageFolderDataset
 
-    if args.shard_head or args.fsdp:
-        _not_yet("recognition train --shard-head / --fsdp", PARALLEL)
+    # Flag validation before the model and state are built (the JAX CLI's exits).
+    if args.fsdp and not args.shard_head:
+        raise SystemExit(
+            "--fsdp requires --shard-head (the FSDP placement rides the "
+            "same sharded-step jit; plain DP stays replicated)"
+        )
+    if args.shard_head and args.microbatches > 1:
+        raise SystemExit(
+            "--microbatches with --shard-head is not supported: the "
+            "class-sharded step is already the memory lever for the head, "
+            "and chunk-scanning under the sharded program is untested"
+        )
     dev = resolve_device(args.device)
+    mesh = None
+    if args.shard_head:
+        # The process group torchrun describes (gloo for --device cpu); a no-op alone.
+        M.init_distributed(backend="gloo" if (args.device or "").startswith("cpu") else None)
+        mesh = M.process_mesh(dev)
     ds = ImageFolderDataset(args.data_root)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         model = build_model(args.arch, device="cpu")
     model = model.to(dev)
-    head = build_head(args.head, class_num=ds.num_classes, m=args.m, seed=args.seed, device=dev)
+    pad_to = mesh.size if mesh is not None else 0
+    head = build_head(args.head, class_num=ds.num_classes, m=args.m, pad_to=pad_to, seed=args.seed, device=dev)
     steps_per_epoch = max(len(ds) // args.batch_size, 1)
     state = RT.create_state(
         model, head, num_train_steps_hint=steps_per_epoch * args.epochs, lr=args.lr,
         milestones=tuple(m * steps_per_epoch for m in args.milestones),
     )
-    maker = RT.make_train_step_aug if args.device_augment else RT.make_train_step
-    step = maker(
-        microbatches=args.microbatches, compute_dtype="bfloat16" if args.precision == 16 else "float32",
-        seed=args.seed,
-    )
+    compute_dtype = "bfloat16" if args.precision == 16 else "float32"
+    if mesh is not None:
+        from jabd_tpu_torch.recognition import parallel as RP
+
+        maker = RP.make_sharded_train_step_aug if args.device_augment else RP.make_sharded_train_step
+        step, state = maker(state, mesh, fsdp=args.fsdp, compute_dtype=compute_dtype, seed=args.seed)
+        if mesh.rank == 0:
+            print(f"[shard-head] {ds.num_classes} classes over {mesh.size} ranks"
+                  + (" + fsdp backbone" if args.fsdp else ""), file=sys.stderr)
+    else:
+        maker = RT.make_train_step_aug if args.device_augment else RT.make_train_step
+        step = maker(microbatches=args.microbatches, compute_dtype=compute_dtype, seed=args.seed)
     RT.fit(
         state, step, ds, args.batch_size, args.epochs, device_augment=args.device_augment, seed=args.seed,
         val_dir=args.val_dir, checkpoint_dir=args.checkpoint_dir, save_period=args.save_period,
-        resume=not args.no_resume, device=dev,
+        resume=not args.no_resume, device=dev, mesh=mesh,
     )
 
 
@@ -195,15 +217,22 @@ def cmd_extract(args):
 
     from jabd_tpu_torch.recognition import train as RT
 
+    mesh = None
     if args.data_parallel:
-        _not_yet("extract --data-parallel", PARALLEL)
+        from jabd_tpu_torch.parallel.mesh import make_mesh_for_batch
+
+        devices = [d.strip() for d in args.device.split(",")] if args.device else None
+        mesh = make_mesh_for_batch(args.batch_size, devices)
+        args.device = str(mesh.devices[0])
+        if mesh.size > 1:
+            print(f"[mesh] extraction sharded over {mesh.size} devices", file=sys.stderr)
     with open(args.image_list) as f:
         paths = [line.strip() for line in f if line.strip()]
     model = _load_backbone(args)
     emb, norms = RT.extract_features_partitioned(
         model, image_loader=lambda i: _load_images([paths[i]])[0], num_images=len(paths),
         num_partitions=args.partitions, batch_size=args.batch_size, save_dir=args.out_dir,
-        device=args.device,
+        mesh=mesh, device=args.device,
     )
     np.savez(f"{args.out_dir}/features.npz", emb=emb, norm=norms, paths=np.asarray(paths))
     print(f"extracted {len(paths)} features -> {args.out_dir}/features.npz")
@@ -279,8 +308,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--no-resume", action="store_true", help="start fresh even if --checkpoint-dir has checkpoints")
     sp.add_argument("--device-augment", action="store_true",
                     help="run the augmentation on the card inside the step; the host only decodes")
-    sp.add_argument("--shard-head", action="store_true", help=f"class-sharded head over cards ({PARALLEL})")
-    sp.add_argument("--fsdp", action="store_true", help=f"with --shard-head: shard the backbone ({PARALLEL})")
+    sp.add_argument("--shard-head", action="store_true",
+                    help="shard the head along classes over the process group (torchrun; recognition/parallel.py)")
+    sp.add_argument("--fsdp", action="store_true", help="with --shard-head: FSDP-shard the backbone")
     sp.add_argument("--microbatches", type=int, default=1,
                     help="split each batch into N chunks (ghost BatchNorm), average their gradients, one update")
     sp.add_argument("--precision", type=int, choices=(16, 32), default=32,
@@ -319,7 +349,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--image-list", required=True)
     sp.add_argument("--out-dir", required=True)
     sp.add_argument("--partitions", type=int, default=100)
-    sp.add_argument("--data-parallel", action="store_true", help=f"shard extraction over cards ({PARALLEL})")
+    sp.add_argument("--data-parallel", action="store_true",
+                    help="split each batch over a replica per card (or per comma-separated --device entry)")
     sp.set_defaults(fn=cmd_extract)
 
     sp = sub.add_parser("ijbs")

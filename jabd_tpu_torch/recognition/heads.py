@@ -103,6 +103,11 @@ class _MarginHead(nn.Module):
             idx = labels.long()[:, None]
             return self._scaled(self._margin(cosine, idx, norms))
 
+    def _margin(self, cosine, idx, norms):
+        """cosine + delta at each row's target column, without the [B, C]
+        one-hot; `_delta(target cosine [B, 1], norms)` is the head's."""
+        return cosine.scatter_add(1, idx, self._delta(cosine.gather(1, idx), norms))
+
 
 class AdaFaceHead(_MarginHead):
     def __init__(self, classnum: int, embedding_size: int = 512, m: float = 0.4, h: float = 0.333,
@@ -113,7 +118,7 @@ class AdaFaceHead(_MarginHead):
         self.register_buffer("batch_mean", torch.tensor(20.0))
         self.register_buffer("batch_std", torch.tensor(100.0))
 
-    def _margin(self, cosine, idx, norms):
+    def _delta(self, tgt, norms):
         # The norms are a quality observation, not a gradient path (the
         # official AdaFace's safe_norms.clone().detach()).
         safe_norms = norms.float().clamp(0.001, 100.0).detach()
@@ -124,11 +129,9 @@ class AdaFaceHead(_MarginHead):
         # The scaler reads the statistics after this step's update.
         scaler = (safe_norms[:, 0] - self.batch_mean) / (self.batch_std + self.eps)
         scaler = (scaler * self.h).clamp(-1.0, 1.0)[:, None]
-        tgt = cosine.gather(1, idx)
         theta_m = (torch.arccos(tgt) + -self.m * scaler).clamp(self.eps, math.pi - self.eps)
         tgt_new = torch.cos(theta_m) - (self.m * scaler + self.m)
-        # cosine + (tgt_new - tgt) * onehot, without the [B, C] one-hot.
-        return cosine.scatter_add(1, idx, tgt_new - tgt)
+        return tgt_new - tgt
 
 
 class ArcFaceHead(_MarginHead):
@@ -136,10 +139,9 @@ class ArcFaceHead(_MarginHead):
                  eps: float = 1e-3, pad_to: int = 0, generator: torch.Generator = None):
         super().__init__(classnum, embedding_size, m, s, eps, pad_to, generator)
 
-    def _margin(self, cosine, idx, norms):
-        tgt = cosine.gather(1, idx)
+    def _delta(self, tgt, norms):
         theta_m = (torch.arccos(tgt) + self.m).clamp(self.eps, math.pi - self.eps)
-        return cosine.scatter_add(1, idx, torch.cos(theta_m) - tgt)
+        return torch.cos(theta_m) - tgt
 
 
 class CosFaceHead(_MarginHead):
@@ -147,8 +149,8 @@ class CosFaceHead(_MarginHead):
                  eps: float = 1e-3, pad_to: int = 0, generator: torch.Generator = None):
         super().__init__(classnum, embedding_size, m, s, eps, pad_to, generator)
 
-    def _margin(self, cosine, idx, norms):
-        return cosine.scatter_add(1, idx, torch.full(idx.shape, -self.m, device=cosine.device))
+    def _delta(self, tgt, norms):
+        return torch.full(tgt.shape, -self.m, device=tgt.device)
 
 
 def build_head(

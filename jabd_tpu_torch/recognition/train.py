@@ -2,7 +2,7 @@
 flip-TTA extraction with the 5-set verification.
 
 Port of `jabd_tpu/recognition/train.py`, the reference's recipe
-(train_val.py, main.py) on one device:
+(train_val.py, main.py):
 
   * model(images) -> (embedding, norm); head(embedding, norm, labels) ->
     scaled margin logits; cross-entropy over them (train_val.py:52-70);
@@ -24,9 +24,10 @@ same draws on every resume, not the JAX package's). With
 compute_dtype "bfloat16" (`--precision 16`) the backbone runs under
 torch.autocast while its parameters, the head and the loss stay float32.
 Every batch of an extraction, the tail included, is padded to
-`batch_size`, so a sweep runs one shape. Sharding the head over cards
-(`recognition/parallel.py`) and a sweep over cards (`mesh=`) come with
-the parallelism slice.
+`batch_size`, so a sweep runs one shape; over a local mesh (`mesh=`) each
+padded batch is split across one replica per mesh entry. Training with
+the head sharded over a process mesh is `recognition/parallel.py`, which
+`fit(mesh=)` drives.
 """
 
 from __future__ import annotations
@@ -44,10 +45,10 @@ import torch.nn.functional as F
 
 from jabd_tpu_torch import resolve_device
 from jabd_tpu_torch.models.retinaface import dropout_seed
+from jabd_tpu_torch.parallel import mesh as M
 from jabd_tpu_torch.recognition import identification as ID
 from jabd_tpu_torch.recognition import verification as V
 
-PARALLEL = "the parallelism slice"
 # Steps a loop may run ahead of the host before it waits for an old loss.
 MAX_IN_FLIGHT = 3
 
@@ -66,11 +67,13 @@ def make_optimizer(
 ) -> torch.optim.SGD:
     """SGD with momentum, two groups: decayed (every name `_is_bn_param`
     rejects) and not decayed."""
+    from jabd_tpu_torch.parallel.fsdp import foreach_flag
+
     decay = [p for n, p in named_params if not _is_bn_param(n)]
     no_decay = [p for n, p in named_params if _is_bn_param(n)]
     return torch.optim.SGD(
         [{"params": decay, "weight_decay": weight_decay}, {"params": no_decay, "weight_decay": 0.0}],
-        lr=lr, momentum=momentum, dampening=0.0, nesterov=False,
+        lr=lr, momentum=momentum, dampening=0.0, nesterov=False, foreach=foreach_flag(decay + no_decay),
     )
 
 
@@ -246,6 +249,7 @@ def fit(
     resume: bool = True,
     log=print,
     device=None,
+    mesh: Optional[M.Mesh] = None,
 ) -> RecTrainState:
     """The reference's Lightning Trainer around the step (main.py:15-62) on
     `device` (the card unless given): epochs of batches from
@@ -258,11 +262,24 @@ def fit(
     `save_period` epochs and at the last, a copy under
     `<checkpoint_dir>/best` with `best_meta.json` when val_acc improves,
     and a row of `<checkpoint_dir>/metrics.csv` (epoch,step,loss,acc,
-    val_acc). Resumes from the latest checkpoint unless resume is False."""
+    val_acc). Resumes from the latest checkpoint unless resume is False.
+
+    Over a process mesh of size > 1 (`mesh`, with the step and state of
+    `recognition/parallel.make_sharded_train_step`) every rank loads the
+    same global batches and keeps its rows; every rank validates (an FSDP
+    backbone's forward needs them all), rank 0 alone logs and writes the
+    files, the checkpoints in the single-process layout."""
     from jabd_tpu_torch.train import prefetch_to_device
     from jabd_tpu_torch.utils.checkpoint import CheckpointManager
 
     dev = resolve_device(device)
+    sharded = M.is_sharded(mesh)
+    lead = not sharded or mesh.rank == 0
+    if sharded:
+        M.check_divisible(batch_size, mesh)
+    else:
+        mesh = None
+    say = log if lead else (lambda *a, **k: None)
     if device_augment:
         from jabd_tpu_torch.recognition.device_augment import device_face_train_loader as loader
     else:
@@ -283,8 +300,8 @@ def fit(
         if resume and mgr.latest_step() is not None:
             state = mgr.restore(state)
             start_epoch = int(mgr.latest_step())
-            log(f"resumed from checkpoint at epoch {start_epoch}")
-        if not os.path.exists(metrics_path):
+            say(f"resumed from checkpoint at epoch {start_epoch}")
+        if lead and not os.path.exists(metrics_path):
             with open(metrics_path, "w") as f:
                 f.write("epoch,step,loss,acc,val_acc\n")
 
@@ -296,7 +313,8 @@ def fit(
             tuple(torch.from_numpy(x) if isinstance(x, np.ndarray) else x for x in batch)
             for batch in loader(ds, batch_size, seed=seed + epoch)
         )
-        for batch in prefetch_to_device(batches, dev, depth=2):
+        fed = M.prefetch_to_device(batches, mesh, 2) if sharded else prefetch_to_device(batches, dev, depth=2)
+        for batch in fed:
             state, m = step_fn(state, *batch)
             losses.append(m["loss"])
             accs.append(m["acc"])
@@ -305,27 +323,39 @@ def fit(
                 synced += 1
         loss = float(torch.stack(losses).mean()) if losses else math.nan
         acc = float(torch.stack(accs).mean()) if accs else math.nan
-        log(f"epoch {epoch}/{epochs}: loss={loss:.4f} acc={acc:.4f} "
+        say(f"epoch {epoch}/{epochs}: loss={loss:.4f} acc={acc:.4f} "
             f"({time.perf_counter() - t0:.2f} s, {len(losses)} steps)")
 
         val_acc = None
         if val_dir:
             out = validate_5sets(state.model, val_dir, device=dev)
             val_acc = out["mean"]["val_acc"]
-            log(json.dumps(out))
-        if metrics_path:
+            say(json.dumps(out))
+        if metrics_path and lead:
             with open(metrics_path, "a") as f:
                 f.write(f"{epoch},{state.step},{loss:.6f},{acc:.6f},"
                         f"{'' if val_acc is None else f'{val_acc:.6f}'}\n")
         if mgr and (epoch % save_period == 0 or epoch == epochs):
-            mgr.save(epoch, state)
+            _save(mgr, epoch, state, mesh)
         if best_mgr and val_acc is not None and val_acc > best_acc:
             best_acc = val_acc
-            best_mgr.save(epoch, state)
-            with open(best_meta_path, "w") as f:
-                json.dump({"epoch": epoch, "val_acc": val_acc}, f)
-            log(f"new best val_acc {val_acc:.4f} at epoch {epoch}")
+            _save(best_mgr, epoch, state, mesh)
+            if lead:
+                with open(best_meta_path, "w") as f:
+                    json.dump({"epoch": epoch, "val_acc": val_acc}, f)
+            say(f"new best val_acc {val_acc:.4f} at epoch {epoch}")
     return state
+
+
+def _save(mgr, step: int, state, mesh: Optional[M.Mesh]) -> None:
+    """Checkpoint `state` as step `step`: gathered on every rank (a
+    collective under a sharded state), written by rank 0."""
+    from jabd_tpu_torch.train import _Payload
+
+    payload = state.state_dict()
+    if mesh is None or mesh.rank == 0:
+        mgr.save(step, _Payload(payload))
+    M.barrier(mesh)
 
 
 def extract_embeddings_tta(
@@ -342,25 +372,41 @@ def extract_embeddings_tta(
     (the card unless given): each batch and its copy flipped along W are
     embedded and fused by `fusion_method`
     (`identification.fuse_features_with_norm`). Returns ([N, 512]
-    embeddings, [N, 1] norms)."""
-    if mesh is not None:
-        raise NotImplementedError(f"the PyTorch port does not have yet: mesh= extraction: {PARALLEL}")
-    dev = resolve_device(device)
-    model = model.to(dev).eval()
+    embeddings, [N, 1] norms).
+
+    `mesh`: a local mesh (parallel/mesh.py) of size > 1 splits each padded
+    batch across one replica of the model per mesh entry (ValueError when
+    batch_size does not divide the mesh size)."""
+    if M.is_local_sharded(mesh):
+        if batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} must divide mesh size {mesh.size}")
+        replicas = [m.eval() for m in M.replicate_tree(model, mesh)]
+    else:
+        replicas = [model.to(resolve_device(device)).eval()]
+        mesh = M.Mesh([next(replicas[0].parameters()).device])
+
+    def embed(xs, flip: bool):
+        """Each replica's rows, launched on every device before any is read."""
+        outs = []
+        for m, x in zip(replicas, M.shard_batch(xs, mesh)):
+            x = x.permute(0, 3, 1, 2)
+            outs.append(m(torch.flip(x, dims=(3,)) if flip else x))
+        return [np.concatenate([o[i].cpu().numpy() for o in outs]) for i in range(2)]
+
     embs, norms = [], []
     for lo in range(0, len(images), batch_size):
         xs = np.asarray(images[lo : lo + batch_size], np.float32)
         nb = len(xs)
         if nb < batch_size:  # pad the tail: one shape for the whole sweep
             xs = np.concatenate([xs, np.zeros((batch_size - nb, *xs.shape[1:]), xs.dtype)])
-        x = torch.from_numpy(xs).to(dev).permute(0, 3, 1, 2)
+        xs = torch.from_numpy(xs)
         with torch.inference_mode():
-            e1, n1 = (t[:nb].cpu().numpy() for t in model(x))
+            e1, n1 = (t[:nb] for t in embed(xs, False))
             if not use_flip_test:
                 embs.append(e1)
                 norms.append(n1)
                 continue
-            e2, n2 = (t[:nb].cpu().numpy() for t in model(torch.flip(x, dims=(3,))))
+            e2, n2 = (t[:nb] for t in embed(xs, True))
         fs = faceness_scores[lo : lo + batch_size] if faceness_scores is not None else None
         fused, fused_norm = ID.fuse_features_with_norm(
             np.stack([e1, e2]), np.stack([n1, n2]), fusion_method=fusion_method, faceness_scores=fs

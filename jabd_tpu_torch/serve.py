@@ -22,8 +22,9 @@ The body is decoded as `cv2.imdecode` decodes it (`eval/run_wider.py::
 decode_bgr`: PIL, EXIF orientation applied, BGR); an undecodable body gets
 400, an unknown path 404. `/identify` detects through the shared batches,
 then aligns and embeds the request's faces on its handler thread
-(`IdentityService`); without an embedder it answers 503. Serving over a
-mesh of cards comes with the parallelism slice.
+(`IdentityService`); without an embedder it answers 503. A backend over
+a local mesh (`Predictor(mesh=)`, `aot.load_exported(mesh=)`) splits each
+batch across its replicas, so the batch size must divide the mesh size.
 """
 
 from __future__ import annotations
@@ -63,6 +64,12 @@ class BatchingDetector:
             raise ValueError(
                 f"AOT artifact serves batch {aot_batch}; start the "
                 f"server with --batch-size {aot_batch}"
+            )
+        mesh = getattr(backend, "mesh", None)
+        if mesh is not None and self.batch_size % mesh.size:
+            raise ValueError(
+                f"batch size {self.batch_size} must divide the serving "
+                f"mesh size {mesh.size}"
             )
         self.max_wait_s = max_wait_ms / 1000.0
         pcfg = getattr(backend, "pcfg", None)

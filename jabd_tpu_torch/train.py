@@ -1,6 +1,6 @@
 """Training: optimizer, schedule, train step and the two-phase fit loop.
 
-Port of `jabd_tpu/train.py` for one device. The reference's recipe
+Port of `jabd_tpu/train.py`. The reference's recipe
 (train_mobilenetV3_ecagai.py:436-615, utils/utils_fit_change.py:11-64):
 
   * two phases, "freeze" (lr 1e-3, backbone frozen, epochs 0..freeze) and
@@ -21,6 +21,15 @@ returns its new one. With `compute_dtype="bfloat16"` the forward runs
 under torch.autocast: parameters and Adam stay float32, convolutions and
 matmuls run in bfloat16, the heads are cast to float32 and the loss is
 float32, as flax computes with dtype=bfloat16 over float32 parameters.
+
+Over a process mesh (`mesh=`, parallel/mesh.py: one process per card) the
+step is the JAX package's mesh step: each rank runs its rows of the global
+batch, its BatchNorms are synchronized over the mesh (models/layers.py::
+convert_sync_batchnorm), the loss is normalized by the global positive
+counts and matches each rank's rows (K2 on the card), and the gradients
+are summed over the mesh in one bucket before the same Adam update on
+every rank. With `fsdp` the parameters the JAX leaf rule shards, and
+their Adam moments, are sharded by FSDP2 (parallel/fsdp.py).
 """
 
 from __future__ import annotations
@@ -39,20 +48,17 @@ from jabd_tpu_torch.models import build_model
 from jabd_tpu_torch.models.init import reference_weights_init
 from jabd_tpu_torch.models.retinaface import dropout_seed
 from jabd_tpu_torch.ops import anchors as A
+from jabd_tpu_torch.parallel import fsdp as FS
+from jabd_tpu_torch.parallel import mesh as M
 
 
 def check_supported(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConfig) -> None:
-    """Raise NotImplementedError for a TrainConfig option the port has
-    not brought yet, and ValueError for a model the loss cannot take; it
-    never runs something else in its place."""
+    """Raise ValueError for a model the loss cannot take; it never runs
+    something else in its place."""
     if model_cfg.with_iou_head:
         raise ValueError(
             f"model {model_cfg.name!r} has an IoU head (a fourth output); the "
             "multibox loss takes (loc, conf, landm) only, as in the JAX package"
-        )
-    if train_cfg.fsdp:
-        raise NotImplementedError(
-            "the PyTorch port does not have yet: fsdp: the parallelism slice"
         )
 
 
@@ -65,8 +71,10 @@ def step_lr(lr: float, steps_per_epoch: int, gamma: float, count: int) -> float:
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float, weight_decay: float = 5e-4):
     """torch Adam with L2 weight decay into the gradient."""
+    params = list(params)
     return torch.optim.Adam(
-        params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
+        params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+        foreach=FS.foreach_flag(params),
     )
 
 
@@ -83,7 +91,9 @@ class TrainState:
 
     `step` counts every update since the start; `count` the updates of
     this phase's optimizer, which the schedule reads (the JAX package's
-    ScaleByScheduleState count)."""
+    ScaleByScheduleState count). Under FSDP `state_dict` gathers the full
+    state in the single-process layout (a collective: every rank calls
+    it) and `load_state_dict` takes that layout."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -92,6 +102,7 @@ class TrainState:
     gamma: float
     step: int = 0
     count: int = 0
+    mesh: Optional[M.Mesh] = None
 
     def lr_at(self, count: int) -> float:
         return step_lr(self.lr, self.steps_per_epoch, self.gamma, count)
@@ -107,15 +118,15 @@ class TrainState:
 
     def state_dict(self) -> Dict:
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "model": FS.full_model_state_dict(self.model),
+            "optimizer": FS.full_optimizer_state_dict(self.optimizer),
             "step": self.step,
             "count": self.count,
         }
 
     def load_state_dict(self, payload: Dict) -> None:
-        self.model.load_state_dict(payload["model"])
-        self.optimizer.load_state_dict(payload["optimizer"])
+        FS.load_full_model_state_dict(self.model, payload["model"])
+        FS.load_full_optimizer_state_dict(self.optimizer, payload["optimizer"])
         self.step = int(payload["step"])
         self.count = int(payload["count"])
 
@@ -137,24 +148,47 @@ def create_train_state(
     lr: Optional[float] = None,
     freeze_backbone: bool = False,
     device=None,
+    mesh: Optional[M.Mesh] = None,
 ) -> TrainState:
     """A train-mode model with the reference's from-scratch init (drawn on
     the CPU from a torch.Generator seeded with train_cfg.seed), moved to
-    `device` (the card unless given), and a fresh optimizer."""
+    `device` (the card unless given), and a fresh optimizer. Over a process
+    mesh of size > 1 (`place_on_mesh`) the BatchNorms are synchronized,
+    rank 0's weights broadcast and, with `fsdp`, the model sharded."""
     dev = resolve_device(device)
     model = build_model(model_cfg, mode="train", device="cpu")
     reference_weights_init(
         model, torch.Generator().manual_seed(train_cfg.seed), train_cfg.weights_init
     )
     model.to(dev)
+    place_on_mesh(model, mesh, train_cfg.fsdp)
     state = TrainState(
         model=model,
         optimizer=None,
         lr=0.0,
         steps_per_epoch=steps_per_epoch,
         gamma=train_cfg.lr_gamma,
+        mesh=mesh,
     )
     return new_phase(state, lr or train_cfg.lr_freeze, freeze_backbone, train_cfg.weight_decay)
+
+
+def place_on_mesh(model: torch.nn.Module, mesh: Optional[M.Mesh], fsdp: bool = False) -> torch.nn.Module:
+    """Make `model` a replica of a process mesh of size > 1, in place:
+    synchronized BatchNorms, rank 0's parameters and statistics everywhere
+    (`replicate_tree`), and FSDP2 under the leaf rule with `fsdp`. Build
+    the optimizer after it. A smaller mesh, or None, leaves the model as
+    it is (the JAX package's fit replicates, or FSDP-shards, only when
+    mesh.size > 1)."""
+    if not M.is_sharded(mesh):
+        return model
+    from jabd_tpu_torch.models.layers import convert_sync_batchnorm
+
+    convert_sync_batchnorm(model, mesh)
+    M.replicate_tree(model, mesh)
+    if fsdp:
+        FS.shard_model(model, mesh)
+    return model
 
 
 def _batchnorm_stats(model: torch.nn.Module):
@@ -171,7 +205,7 @@ def _restore_batchnorm_stats(saved) -> None:
         m.running_mean, m.running_var, m.num_batches_tracked = mean, var, count
 
 
-def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConfig):
+def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConfig, mesh: Optional[M.Mesh] = None):
     """step(state, images [B, H, W, 3] float32, targets, anchors [P, 4])
     -> (state, metrics): train-mode forward -> multibox_loss ->
     total_loss -> backward -> Adam update. Images, targets and anchors lie
@@ -207,15 +241,29 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
     state.step * microbatches + i)`: deterministic under resume, as the
     JAX package's fold_in(PRNGKey(seed), step) is, though not its draws.
 
+    `mesh`: the process mesh the batch is sharded over (fit's). Images,
+    plan and targets are then this rank's rows, chunk i of them its shard
+    of the global chunk i (`parallel.mesh.shard_batch(..., chunks=
+    microbatches)`); the model is a replica made by `place_on_mesh`
+    (`create_train_state(mesh=)`), its BatchNorms synchronized. Each rank's
+    loss terms are its share of the global terms (losses.multibox_loss
+    `matching_mesh`), the gradients are summed over the mesh (FSDP
+    reduce-scatters the ones it shards), and the metrics are the global
+    batch's. Rank r of n draws its dropout masks from stream (step * mb +
+    i) * n + r. A mesh of size 1 is the plain step.
+
     Raises ValueError for a model with an IoU head."""
     check_supported(model_cfg, train_cfg)
     bf16 = model_cfg.compute_dtype == "bfloat16"
     mb = max(train_cfg.microbatches, 1)  # <= 1: the whole batch, as in JAX
+    mesh = mesh if M.is_sharded(mesh) else None
 
     def chunk_backward(model, images, targets, anchors, stream: int):
         x = images.permute(0, 3, 1, 2)
         generator = None
         if model_cfg.tap_dropout > 0.0:
+            if mesh is not None:
+                stream = stream * mesh.size + mesh.rank
             generator = torch.Generator(x.device).manual_seed(dropout_seed(train_cfg.seed, stream))
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
             out = model(x, remat=train_cfg.remat, generator=generator)
@@ -229,6 +277,7 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
             variances=model_cfg.anchors.variance,
             box_loss=model_cfg.box_loss,
             matching_impl=train_cfg.matching_impl,
+            matching_mesh=mesh,
         )
         loss = losses.total_loss(parts, train_cfg.loc_weight)
         loss.backward()  # adds into .grad
@@ -249,6 +298,11 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
             chunk_targets = losses.Targets(*(t[part] for t in targets))
             # A dropout stream per chunk: step * mb + i, as in JAX.
             chunks.append(chunk_backward(model, make_images(part), chunk_targets, anchors, state.step * mb + i))
+        if mesh is not None:
+            M.all_reduce_grads(FS.replicated_parameters(model), mesh)
+            keys = list(chunks[0])
+            summed = M.all_reduce(torch.stack([torch.stack([c[k] for k in keys]) for c in chunks]), mesh)
+            chunks = [dict(zip(keys, row)) for row in summed]
         if mb == 1:
             metrics = chunks[0]
         else:
@@ -341,6 +395,7 @@ def fit(
     start_epoch: int = 0,
     init_state: Optional[TrainState] = None,
     device=None,
+    mesh: Optional[M.Mesh] = None,
 ) -> TrainState:
     """The two-phase loop (freeze -> unfreeze) of
     train_mobilenetV3_ecagai.py:553-615 on `device` (the card unless
@@ -350,22 +405,43 @@ def fit(
     `prefetch_to_device`. Appends one row per epoch to
     `<log_dir>/metrics.csv`, resumes from the latest checkpoint of
     `checkpoint_manager` (optimizer included) and always saves the final
-    state. Returns the TrainState."""
+    state. Returns the TrainState.
+
+    `mesh` defaults to the initialized process group's (`parallel.mesh.
+    process_mesh`; size 1 without one). Over a mesh of size > 1 every rank
+    loads the same global batches and keeps its rows, the step is the mesh
+    step (`make_train_step(mesh=)`, FSDP with `fsdp`), and only rank 0
+    logs, writes metrics.csv and writes checkpoints, in the single-process
+    layout (`partial_load` and utils/convert.py read them as they are);
+    every rank resumes from them. Raises ValueError when the batch (each
+    microbatch chunk) does not divide the mesh."""
     from jabd_tpu_torch.data.device_augment import device_train_loader
     from jabd_tpu_torch.data.wider import train_loader
     from jabd_tpu_torch.utils.logging import LossHistory
 
-    step_fn = make_train_step(model_cfg, train_cfg)  # raises for fsdp
     dev = resolve_device(device)
+    mesh = mesh or M.process_mesh(dev)
+    mb = max(train_cfg.microbatches, 1)
+    M.check_divisible(train_cfg.batch_size, mesh, mb)
+    sharded = M.is_sharded(mesh)
+    lead = mesh.rank == 0
+    step_fn = make_train_step(model_cfg, train_cfg, mesh=mesh)
     steps_per_epoch = max(len(dataset) // train_cfg.batch_size, 1)
     size = (train_cfg.image_size, train_cfg.image_size)
     anchors = torch.from_numpy(A.generate_anchors(model_cfg.anchors, size).copy()).to(dev)
-    history = LossHistory(log_dir)
     metrics_path = os.path.join(log_dir, "metrics.csv")
-    os.makedirs(log_dir, exist_ok=True)
-    if not os.path.exists(metrics_path):
-        with open(metrics_path, "w") as f:
-            f.write("epoch,step,loss,loss_l,loss_c,loss_landm,lr\n")
+    if lead:
+        history = LossHistory(log_dir)
+        os.makedirs(log_dir, exist_ok=True)
+        if not os.path.exists(metrics_path):
+            with open(metrics_path, "w") as f:
+                f.write("epoch,step,loss,loss_l,loss_c,loss_landm,lr\n")
+
+    def save(step: int, state: TrainState) -> None:
+        payload = state.state_dict()  # a collective under FSDP
+        if lead:
+            checkpoint_manager.save(step, _Payload(payload))
+        M.barrier(mesh)
 
     state = init_state
     resume_phase_freeze = None
@@ -387,11 +463,13 @@ def fit(
             lr=train_cfg.lr_freeze if resume_phase_freeze else train_cfg.lr_unfreeze,
             freeze_backbone=resume_phase_freeze,
             device=dev,
+            mesh=mesh,
         )
         state = checkpoint_manager.restore(template)
         start_epoch = max(start_epoch, resumed_epoch)
         just_resumed = True
-        print(f"resumed from checkpoint at epoch {resumed_epoch}")
+        if lead:
+            print(f"resumed from checkpoint at epoch {resumed_epoch}")
 
     phase_bounds = [
         (start_epoch, train_cfg.freeze_epochs, train_cfg.lr_freeze, True),
@@ -412,7 +490,7 @@ def fit(
         if state is None:
             state = create_train_state(
                 model_cfg, train_cfg, steps_per_epoch, lr=lr,
-                freeze_backbone=freeze, device=dev,
+                freeze_backbone=freeze, device=dev, mesh=mesh,
             )
         elif just_resumed:
             just_resumed = False  # mid-phase resume keeps the restored optimizer
@@ -440,7 +518,8 @@ def fit(
                         dataset, train_cfg.batch_size, max_targets=train_cfg.max_targets, seed=seed,
                     )
                 )
-            for images, plan, *arrays in prefetch_to_device(batches, dev, depth=2):
+            fed = M.prefetch_to_device(batches, mesh, 2, chunks=mb) if sharded else prefetch_to_device(batches, dev, 2)
+            for images, plan, *arrays in fed:
                 targets = losses.Targets(*arrays)
                 if plan is None:
                     state, metrics = step_fn(state, images, targets, anchors)
@@ -452,23 +531,34 @@ def fit(
                 k: float(torch.stack([m[k] for m in step_metrics]).mean()) if nsteps else 0.0
                 for k in ("loss", "loss_l", "loss_c", "loss_landm")
             }
-            history.append_loss(means["loss"])
-            with open(metrics_path, "a") as f:
-                f.write(
-                    f"{epoch + 1},{state.step},{means['loss']:.6f},"
-                    f"{means['loss_l']:.6f},{means['loss_c']:.6f},"
-                    f"{means['loss_landm']:.6f},{cur_lr:.8f}\n"
+            if lead:
+                history.append_loss(means["loss"])
+                with open(metrics_path, "a") as f:
+                    f.write(
+                        f"{epoch + 1},{state.step},{means['loss']:.6f},"
+                        f"{means['loss_l']:.6f},{means['loss_c']:.6f},"
+                        f"{means['loss_landm']:.6f},{cur_lr:.8f}\n"
+                    )
+                print(
+                    f"epoch {epoch + 1}/{last} loss={means['loss']:.4f} lr={cur_lr:.6f} "
+                    f"({time.time() - t0:.1f}s, {nsteps} steps)"
                 )
-            print(
-                f"epoch {epoch + 1}/{last} loss={means['loss']:.4f} lr={cur_lr:.6f} "
-                f"({time.time() - t0:.1f}s, {nsteps} steps)"
-            )
             if checkpoint_manager is not None and (epoch + 1) % train_cfg.save_period == 0:
-                checkpoint_manager.save(epoch + 1, state)
+                save(epoch + 1, state)
     if (
         checkpoint_manager is not None
         and state is not None
         and checkpoint_manager.latest_step() != train_cfg.total_epochs
     ):
-        checkpoint_manager.save(train_cfg.total_epochs, state)
+        save(train_cfg.total_epochs, state)
     return state
+
+
+class _Payload:
+    """A state dict already gathered, for CheckpointManager.save."""
+
+    def __init__(self, payload: Dict):
+        self.payload = payload
+
+    def state_dict(self) -> Dict:
+        return self.payload

@@ -10,7 +10,9 @@
   the JAX CLI's faces on the same `.pth`;
 - `dir-predict` (padded tail batch), `video` on a 3-frame MJPG clip,
   `count`, and an artifact through `export` and `predict --exported`;
-- the parallel flags (recognition training's included) exit naming their slice.
+- `--spatial` exits naming the spatial slice, alone and with
+  `--data-parallel` (JAX's text); the data-parallel flags run (held in
+  tests/test_torch_port_parallel_serve.py and _recognition.py).
 
 Both CLIs build the presets in float32 here (their `get_model_config`
 patched), so the comparison is of the algorithm, not of bfloat16 rounding.
@@ -119,8 +121,13 @@ def test_train_flags_reach_trainconfig(monkeypatch, tmp_path):
     for field in ("batch_size", "image_size", "total_epochs", "freeze_epochs", "save_period", "microbatches",
                   "device_augment", "matching_impl"):
         assert getattr(defaults["port"], field) == getattr(defaults["jax"], field), field
-    with pytest.raises(SystemExit, match="--fsdp: the parallelism slice"):
-        cli.main(["train", "--label-txt", str(label), "--fsdp"])
+    # --fsdp reaches TrainConfig (one process: the plain path, as in JAX's fit)
+    cli.main(["train", "--label-txt", str(label), "--fsdp", "--ckpt-dir", str(tmp_path / "f")])
+    assert defaults["port"].fsdp is False  # setdefault kept the first run's config
+    captured.clear()
+    monkeypatch.setattr(TT, "fit", lambda mcfg, tcfg, ds, **kw: captured.setdefault("tcfg", tcfg))
+    cli.main(["train", "--label-txt", str(label), "--fsdp", "--ckpt-dir", str(tmp_path / "f"), *CPU])
+    assert captured["tcfg"].fsdp is True
     with pytest.raises(SystemExit):
         cli.main(["train", "--label-txt", str(label), "--matching-impl", "pallas"])
 
@@ -235,22 +242,27 @@ def test_video_on_a_three_frame_clip(golden_tree, tmp_path, capsys):
 @pytest.mark.parametrize(
     "argv,slice_name",
     [
-        (["recognition", "train", "--data-root", ".", "--shard-head"], "parallelism slice"),
-        (["recognition", "train", "--data-root", ".", "--fsdp"], "parallelism slice"),
-        (["recognition", "extract", "--image-list", "x", "--out-dir", "o", "--data-parallel"], "parallelism slice"),
-        (["predict", "--image", "x.png", "--spatial"], "parallelism slice"),
-        (["dir-predict", "--input-dir", ".", "--out", "o", "--data-parallel"], "parallelism slice"),
-        (["map-txt", "--val-dir", ".", "--out", "o", "--data-parallel"], "parallelism slice"),
-        (["serve", "--data-parallel"], "parallelism slice"),
+        (["recognition", "train", "--data-root", ".", "--shard-head", "--microbatches", "2"],
+         "--microbatches with --shard-head"),
+        (["recognition", "train", "--data-root", ".", "--fsdp"], "--fsdp requires --shard-head"),
+        (["recognition", "extract", "--image-list", "x", "--out-dir", "o", "--data-parallel"], "No such file"),
+        (["predict", "--image", "x.png", "--spatial"], "the spatial slice"),
+        (["dir-predict", "--input-dir", ".", "--out", "o", "--spatial"], "the spatial slice"),
+        (["map-txt", "--val-dir", ".", "--out", "o", "--data-parallel", "--spatial"], "mutually exclusive"),
+        (["serve", "--data-parallel", "--spatial"], "mutually exclusive"),
     ],
 )
 def test_later_slices_exit_naming_them(argv, slice_name):
+    """Only --spatial waits for a later slice (the spatial one); the
+    parallel flags now run, up to JAX's own exits (recognition training's
+    flag checks) or, for `extract --data-parallel`, to the missing image
+    list after the mesh is made."""
     main = cli.main
     if argv[0] == "recognition":
         from jabd_tpu_torch.recognition import cli as rcli
 
         main, argv = rcli.main, argv[1:]
-    with pytest.raises(SystemExit, match=slice_name):
+    with pytest.raises(FileNotFoundError if slice_name == "No such file" else SystemExit, match=slice_name):
         main(argv + CPU)
 
 

@@ -107,11 +107,16 @@ def test_matching_impl_and_mesh_are_checked():
         _port_loss_and_grads(priors, preds, targets, "smooth_l1", "cuda")
     with pytest.raises(ValueError, match="not in"):
         _port_loss_and_grads(priors, preds, targets, "smooth_l1", "pallas")
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
-        TL.multibox_loss(
-            tuple(torch.from_numpy(a) for a in preds), torch.from_numpy(priors),
-            TL.Targets(*(torch.from_numpy(a) for a in targets)), matching_mesh=object(),
-        )
+    # A mesh of one (or none) is the plain path; the counts of a larger
+    # one are summed over its ranks (tests/test_torch_port_parallel_train.py).
+    from jabd_tpu_torch.parallel import mesh as M
+
+    args = (tuple(torch.from_numpy(a) for a in preds), torch.from_numpy(priors),
+            TL.Targets(*(torch.from_numpy(a) for a in targets)))
+    plain = TL.multibox_loss(*args, matching_impl="plain")
+    for mesh in (None, M.Mesh(["cpu"])):
+        got = TL.multibox_loss(*args, matching_impl="plain", matching_mesh=mesh)
+        assert all(torch.equal(got[k], plain[k]) for k in plain)
 
 
 def test_box_functions_match_jax(rng):

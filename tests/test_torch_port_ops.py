@@ -56,6 +56,10 @@ PORT_MODULES = [
     "jabd_tpu_torch.ops.nms",
     "jabd_tpu_torch.ops.nms_cuda",
     "jabd_tpu_torch.ops.resize",
+    "jabd_tpu_torch.parallel",
+    "jabd_tpu_torch.parallel.fsdp",
+    "jabd_tpu_torch.parallel.mesh",
+    "jabd_tpu_torch.parallel.spawn",
     "jabd_tpu_torch.pipeline",
     "jabd_tpu_torch.predict",
     "jabd_tpu_torch.recognition",
@@ -70,6 +74,7 @@ PORT_MODULES = [
     "jabd_tpu_torch.recognition.ijbs",
     "jabd_tpu_torch.recognition.ijbs_proto",
     "jabd_tpu_torch.recognition.net",
+    "jabd_tpu_torch.recognition.parallel",
     "jabd_tpu_torch.recognition.tinyface",
     "jabd_tpu_torch.recognition.torch_convert",
     "jabd_tpu_torch.recognition.train",

@@ -210,8 +210,16 @@ def test_extract_embeddings_tta_matches_jax(golden18, flip, rng):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
-        RT.extract_embeddings_tta(model, images, mesh=object(), device="cpu")
+    # Over a local mesh of two CPU entries: one replica each, the batch
+    # split (tests/test_torch_port_parallel_recognition.py holds it against
+    # JAX's mesh); an indivisible batch raises.
+    from jabd_tpu_torch.parallel import mesh as M
+
+    two = RT.extract_embeddings_tta(model, images, batch_size=4, use_flip_test=flip, mesh=M.make_mesh(["cpu", "cpu"]))
+    for g, t in zip(got, two):
+        np.testing.assert_allclose(t, g, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="must divide mesh size 2"):
+        RT.extract_embeddings_tta(model, images, batch_size=3, mesh=M.make_mesh(["cpu", "cpu"]))
 
 
 def test_extract_features_partitioned_resumes(golden18, rng, tmp_path):

@@ -435,8 +435,13 @@ def test_cli_train_cpu_then_verify(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", ["--shard-head", "--fsdp"])
 def test_cli_train_refusals(flag, tmp_path, monkeypatch):
-    with pytest.raises(SystemExit, match="parallelism slice"):
-        RC.main(["train", "--data-root", str(tmp_path), flag, "--device", "cpu"])
+    """The JAX CLI's exits: --shard-head with --microbatches, --fsdp
+    without --shard-head (both run otherwise: tests/
+    test_torch_port_parallel_recognition.py)."""
+    extra, match = ((["--microbatches", "2"], "--microbatches with --shard-head") if flag == "--shard-head"
+                    else ([], "--fsdp requires --shard-head"))
+    with pytest.raises(SystemExit, match=match):
+        RC.main(["train", "--data-root", str(tmp_path), flag, *extra, "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RC.main(["train", "--data-root", str(tmp_path)])

@@ -428,17 +428,19 @@ def test_fit_resumes_at_the_freeze_boundary(tmp_path):
 
 
 def test_unported_train_options_raise():
-    """Only fsdp (the parallelism slice) raises; remat, microbatches and
-    device_augment build their steps, alone and combined."""
+    """No TrainConfig option raises any more: fsdp, remat, microbatches and
+    device_augment build their steps, alone and combined; on one process
+    fsdp is the plain path (the JAX package's fit shards only over a mesh
+    of more than one device; tests/test_torch_port_parallel_fsdp.py holds
+    it over two ranks). Only a model with an IoU head raises."""
     cfg = TC.get_model_config("jabd_flagship")
-    for kw in ({"fsdp": True}, {"fsdp": True, "remat": True}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            TT.make_train_step(cfg, TC.TrainConfig(**kw))
-        with pytest.raises(NotImplementedError):
-            TT.fit(cfg, TC.TrainConfig(**kw), _Dataset(2), device="cpu")
-    for kw in ({"microbatches": 2}, {"remat": True}, {"device_augment": True},
-               {"microbatches": 2, "remat": True, "device_augment": True}):
+    for kw in ({"fsdp": True}, {"fsdp": True, "remat": True}, {"microbatches": 2}, {"remat": True},
+               {"device_augment": True}, {"microbatches": 2, "remat": True, "device_augment": True}):
         assert callable(TT.make_train_step(cfg, TC.TrainConfig(**kw)))
+    state = TT.create_train_state(cfg, TC.TrainConfig(fsdp=True), 1, device="cpu")
+    assert not any(hasattr(p, "full_tensor") for p in state.model.parameters())
+    with pytest.raises(ValueError, match="IoU head"):
+        TT.make_train_step(TC.get_model_config("re50_iou_head"), TC.TrainConfig())
 
 
 def test_train_config_is_a_faithful_copy():
