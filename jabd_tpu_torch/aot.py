@@ -72,7 +72,15 @@ def export_detector(
 ) -> str:
     """Export `predictor`'s detect graph for [batch_size, *input_shape, 3]
     float32 inputs into `out_dir`. `platforms` defaults to the predictor's
-    device type and must equal it. Returns `out_dir`."""
+    device type and must equal it. Returns `out_dir`. A Predictor with a
+    mesh (either partition) raises, as in the JAX package: export the
+    single-device one, and serve the artifact over a mesh with
+    `load_exported(mesh=)`."""
+    if predictor.mesh is not None:
+        raise ValueError(
+            "export a single-device Predictor (an artifact is one graph on one device; "
+            "load_exported(mesh=) serves it over a data mesh)"
+        )
     dev = predictor.device.type
     platforms = tuple(platforms or (dev,))
     if platforms != (dev,):

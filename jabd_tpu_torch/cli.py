@@ -28,12 +28,15 @@ CLI does (recognition/cli.py::_load_backbone).
 
 `--data-parallel` (serve, dir-predict, map-txt) serves over a local mesh:
 one replica per card, each batch split across them (the mesh shrinks until
-it divides --batch-size, as in the JAX CLI); `--device` may name the
-mesh's devices, comma-separated and repeatable (`--device cpu,cpu`).
-`train` under torchrun (`python -m torch.distributed.run --nproc-per-node
-N -m jabd_tpu_torch.cli train ...`) trains over the process group, with
-`--fsdp` sharding parameters and Adam moments. `--spatial` waits for the
-spatial slice: it exits with a message naming it.
+it divides --batch-size, as in the JAX CLI). `--spatial` (every subcommand
+that builds a Predictor) splits each image's height over a local mesh
+instead (parallel/spatial.py): the latency mode, any batch size, 1
+included. The two are mutually exclusive. Either mesh is each card once,
+or `--device`'s comma-separated, repeatable entries (`--device cpu,cpu`;
+`--device cuda:0,cuda:0` gives two shards on one card). `train` under
+torchrun (`python -m torch.distributed.run --nproc-per-node N -m
+jabd_tpu_torch.cli train ...`) trains over the process group, with
+`--fsdp` sharding parameters and Adam moments.
 """
 
 from __future__ import annotations
@@ -44,12 +47,7 @@ import os
 import sys
 import time
 
-SPATIAL = "the spatial slice"
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
-
-
-def _not_yet(what: str, slice_name: str):
-    sys.exit(f"the PyTorch port does not have yet: {what}: {slice_name}")
 
 
 def _get_config(name):
@@ -97,25 +95,28 @@ def _check_parallel_flags(args):
             "--spatial and --data-parallel are mutually exclusive "
             "(one mesh axis: pick batch- or height-sharding)"
         )
-    if getattr(args, "spatial", False):
-        _not_yet("--spatial", SPATIAL)
+    if getattr(args, "spatial", False) and getattr(args, "exported", ""):
+        raise SystemExit("--spatial runs the live model: an artifact (--exported) is one graph on one device")
 
 
 def _serving_mesh(args):
-    """With --data-parallel, the local mesh over --device's comma-separated
-    devices (each card once without --device), shrunk until it divides
-    --batch-size; else None. Sets args.device to the mesh's first device."""
+    """The local mesh over --device's comma-separated devices (each card
+    once without --device): with --data-parallel shrunk until it divides
+    --batch-size, with --spatial whole; else None. Sets args.device to the
+    mesh's first device."""
     devices = [d.strip() for d in args.device.split(",")] if args.device else None
-    if not getattr(args, "data_parallel", False):
+    spatial = getattr(args, "spatial", False)
+    if not (spatial or getattr(args, "data_parallel", False)):
         if devices and len(devices) > 1:
-            sys.exit("several --device entries need --data-parallel")
+            sys.exit("several --device entries need --data-parallel or --spatial")
         return None
-    from jabd_tpu_torch.parallel.mesh import make_mesh_for_batch
+    from jabd_tpu_torch.parallel.mesh import make_mesh, make_mesh_for_batch
 
-    mesh = make_mesh_for_batch(max(getattr(args, "batch_size", 1), 1), devices)
+    mesh = make_mesh(devices) if spatial else make_mesh_for_batch(max(getattr(args, "batch_size", 1), 1), devices)
     args.device = str(mesh.devices[0])
     if mesh.size > 1:
-        print(f"[mesh] serving sharded over {mesh.size} devices", file=sys.stderr)
+        what = "forward spatially partitioned" if spatial else "serving sharded"
+        print(f"[mesh] {what} over {mesh.size} devices", file=sys.stderr)
     return mesh
 
 
@@ -131,7 +132,8 @@ def _load_predictor(args):
         nms_iou=args.nms_iou,
         input_shape=(args.input_size, args.input_size),
     )
-    return Predictor(mcfg, state, pcfg, device=args.device, mesh=mesh)
+    partition = "spatial" if getattr(args, "spatial", False) else "data"
+    return Predictor(mcfg, state, pcfg, device=args.device, mesh=mesh, partition=partition)
 
 
 def _draw(image, dets):
@@ -484,8 +486,11 @@ def _quantize_for_map_txt(args, pred):
         from jabd_tpu_torch.eval.run_wider import run_wider_val
 
         def score_fn(qmodel):
+            # The sweep serves through pred.replicas (and, on a spatial mesh,
+            # the modules' spatial rules): place the candidate there too.
             saved = pred.model
             pred.model = qmodel
+            pred._replicate()
             try:
                 preds = run_wider_val(pred, args.val_dir, batch_size=max(args.batch_size, 1))
                 aps = evaluate_wider(preds, args.gt_dir)
@@ -494,6 +499,7 @@ def _quantize_for_map_txt(args, pred):
                 return score
             finally:
                 pred.model = saved
+                pred._replicate()
 
     n = pred.quantize_int8(sample, search_clip=args.quantize_search, score_fn=score_fn)
     print(f"[int8] quantized {n} conv sites", file=sys.stderr)
@@ -597,7 +603,11 @@ def build_parser() -> argparse.ArgumentParser:
             help="with --quantize int8: grid-search a global activation clip ratio "
             "by end-to-end output error on the calibration images",
         )
-        sp.add_argument("--spatial", action="store_true", help=f"spatial partitioning over cards ({SPATIAL})")
+        sp.add_argument(
+            "--spatial", action="store_true",
+            help="split each image's height over a local mesh (each card once, or --device's entries): "
+            "the latency mode, any batch size; halo rows exchanged per conv, as the JAX package's GSPMD mode",
+        )
         device(sp)
 
     sp = sub.add_parser("predict")

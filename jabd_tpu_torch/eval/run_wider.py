@@ -139,13 +139,14 @@ def run_wider_val(
 
     Unlike the JAX package, the last chunk is not padded to `batch_size`
     (a batch of any size runs the same graph here), so the partial batch
-    costs only its own images; over a mesh Predictor (`Predictor(mesh=)`)
-    it is padded with zero frames to a multiple of the mesh size, and
-    `batch_size` must divide it."""
+    costs only its own images; over a data-mode mesh Predictor
+    (`Predictor(mesh=)`) it is padded with zero frames to a multiple of the
+    mesh size, and `batch_size` must divide it. A spatial one takes any
+    chunk as it is."""
     if pyramid not in ("host", "device"):
         raise ValueError(f"pyramid must be 'host' or 'device', got {pyramid!r}")
     items = _items(val_dir)
-    mesh = getattr(predictor, "mesh", None)
+    mesh = getattr(predictor, "mesh", None) if getattr(predictor, "partition", "data") == "data" else None
     if mesh is not None and batch_size % mesh.size:
         raise ValueError(f"batch size {batch_size} must divide the serving mesh size {mesh.size}")
 

@@ -319,10 +319,15 @@ class NLM(nn.Module):
         nn.init.zeros_(self.W.bias)
 
     def forward(self, x):
-        b, _, h, w = x.shape
-        q = self.f_query(x).flatten(2).transpose(1, 2)  # [B, HW, ch]
         k = psp(self.f_key(x), self.psp_sizes)  # [B, S, ch]
         v = psp(self.f_value(x), self.psp_sizes)  # [B, S, ch]
+        return self.attend(x, k, v)
+
+    def attend(self, x, k, v):
+        """W(softmax(q k^T) v) + x for the queries of x [B, C, H, W] and
+        the pooled keys and values k, v [B, S, ch]."""
+        b, _, h, w = x.shape
+        q = self.f_query(x).flatten(2).transpose(1, 2)  # [B, HW, ch]
         sim = torch.bmm(q, k.transpose(1, 2))  # [B, HW, S]
         attn = torch.softmax(sim.float(), dim=-1).to(sim.dtype)
         ctx = torch.bmm(attn, v).transpose(1, 2).reshape(b, self.ch, h, w)

@@ -55,9 +55,10 @@ import torch.nn.functional as F
 from jabd_tpu_torch.models.layers import ConvBN
 
 
-def int8_conv_plain(x_q, kernel_q, stride: int, padding: int, groups: int) -> torch.Tensor:
+def int8_conv_plain(x_q, kernel_q, stride: int, padding, groups: int) -> torch.Tensor:
     """int32 conv of int8 x_q [B, C, H, W] and kernel_q [O, C/g, k, k]: a
-    float64 conv of the int8 values (exact, see the module note)."""
+    float64 conv of the int8 values (exact, see the module note). `padding`
+    is one int or (rows, columns)."""
     y = F.conv2d(x_q.double(), kernel_q.double(), stride=stride, padding=padding, groups=groups)
     return y.to(torch.int32)
 
@@ -86,14 +87,15 @@ def int8_matmul_mm(x_q, kernel_q) -> torch.Tensor:
     return torch._int_mm(a, w.t())[:m, :n]
 
 
-def int8_conv_mm(x_q, kernel_q, stride: int, padding: int, groups: int) -> torch.Tensor:
+def int8_conv_mm(x_q, kernel_q, stride: int, padding, groups: int) -> torch.Tensor:
     """The same int32 conv as im2col and `torch._int_mm` per group: rows
     are output pixels (B * Ho * Wo), columns the taps (C/g * k * k). The
     card's route; on the CPU `_int_mm` runs too, which the tests use."""
     b, c, h, w = x_q.shape
     o, cg, kh, kw = kernel_q.shape
     og = o // groups
-    xp = F.pad(x_q, (padding,) * 4) if padding else x_q
+    ph, pw = (padding, padding) if isinstance(padding, int) else padding
+    xp = F.pad(x_q, (pw, pw, ph, ph)) if ph or pw else x_q
     cols = xp.unfold(2, kh, stride).unfold(3, kw, stride)  # [B, C, Ho, Wo, kh, kw]
     ho, wo = cols.shape[2], cols.shape[3]
     m, k = b * ho * wo, cg * kh * kw
@@ -153,11 +155,12 @@ class QConv(_QSite):
         super().__init__(kernel_q, w_scale, x_scale, bias, out_dtype)
         self.stride, self.padding, self.groups = stride, padding, groups
 
-    def int_conv(self, x_q: torch.Tensor) -> torch.Tensor:
+    def int_conv(self, x_q: torch.Tensor, padding=None) -> torch.Tensor:
         """int32 conv: the float64 plain version for a CPU tensor, the
-        `_int_mm` route for a CUDA tensor."""
+        `_int_mm` route for a CUDA tensor. `padding` (rows, columns)
+        replaces the conv's own (parallel/spatial.py pads rows itself)."""
         fn = int8_conv_plain if x_q.device.type == "cpu" else int8_conv_mm
-        return fn(x_q, self.kernel_q, self.stride, self.padding, self.groups)
+        return fn(x_q, self.kernel_q, self.stride, self.padding if padding is None else padding, self.groups)
 
     def forward(self, x):
         return self.dequantize(self.int_conv(self.quantize_input(x)))

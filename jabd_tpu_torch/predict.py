@@ -3,14 +3,15 @@
 Port of `postprocess_outputs`, `detect_batch`, `undo_letterbox_pixels`
 and `Predictor` (`__init__`, `detect_preprocessed`, `detect_images`,
 `detect_image`, `detect_multiscale`, `quantize_int8`, `get_fps`,
-`get_map_txt_rows`) of `jabd_tpu/predict.py`, with its data-parallel
-mesh mode (a replica per mesh entry, the batch split across them, K1 in
-each); its spatial mode waits for the spatial slice. One
-batch runs on the device as forward -> top-k of the scores -> decode ->
-greedy NMS (the CUDA kernel on the card) -> compaction to fixed
-[B, max_detections, 15] rows plus a valid mask; the host letterboxes
-before (or plans the letterbox that the device applies, in
-`detect_images`) and scales to pixels after.
+`get_map_txt_rows`) of `jabd_tpu/predict.py`, with both of its mesh
+modes: data (a replica per mesh entry, the batch split across them, K1 in
+each) and spatial (each image's height split across the entries,
+parallel/spatial.py; K1 once, on the first). One batch runs on the
+device as forward -> top-k of the scores -> decode -> greedy NMS (the
+CUDA kernel on the card) -> compaction to fixed [B, max_detections, 15]
+rows plus a valid mask; the host letterboxes before (or plans the
+letterbox that the device applies, in `detect_images`) and scales to
+pixels after.
 
 Detection row layout: [x1, y1, x2, y2, score, 10 landmark coords].
 """
@@ -34,8 +35,7 @@ from jabd_tpu_torch.ops import nms as N
 from jabd_tpu_torch.ops import nms_cuda
 from jabd_tpu_torch.ops.image import undo_letterbox_pixels
 from jabd_tpu_torch.parallel import mesh as M
-
-SPATIAL = "the spatial slice"
+from jabd_tpu_torch.parallel import spatial as S
 
 
 def select_candidates(
@@ -138,8 +138,18 @@ class Predictor:
     (which is then `device`); each batch is split across the replicas,
     each runs the whole detect graph on its rows (K1 per replica on the
     card), and the rows are concatenated on the first device. Batches must
-    divide the mesh size. `partition="spatial"` (the height axis sharded)
-    raises NotImplementedError: it comes with the spatial slice.
+    divide the mesh size.
+
+    `partition="spatial"` with such a mesh is the latency mode: the model
+    on `mesh.devices[0]`, its weights copied once to each further card,
+    and each image's height split into equal row blocks, one per entry,
+    each computed on its entry's device (parallel/spatial.py: halo rows
+    for every conv and pool, global-context ops gathered, deep levels
+    gathered once they no longer split). Any batch size goes, 1 included; the height must
+    divide the mesh size (JAX's ValueError). The head maps are gathered on
+    the first device, where top-k, decode, K1 and compaction run once, as
+    JAX's all-replicated post-process computes. A mesh of size 1 is the
+    plain path in either mode.
     """
 
     def __init__(
@@ -159,8 +169,7 @@ class Predictor:
             )
         if partition not in ("data", "spatial"):
             raise ValueError(f"partition must be 'data' or 'spatial', got {partition!r}")
-        if partition == "spatial":
-            raise NotImplementedError(f"the PyTorch port does not have yet: spatial partitioning: {SPATIAL}")
+        self.partition = partition
         self.mesh = mesh if M.is_local_sharded(mesh) else None
         self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         self.mcfg = model_cfg
@@ -174,10 +183,18 @@ class Predictor:
         self._replicate()
         self._anchors = {}
 
+    @property
+    def _spatial(self) -> bool:
+        return self.mesh is not None and self.partition == "spatial"
+
     def _replicate(self) -> None:
-        """One copy of the model per further mesh entry."""
+        """One copy of the model per further entry of a data mesh; on a
+        spatial mesh, the one model with its modules' spatial rules and its
+        weights copied to each further card (parallel/spatial.py)."""
         self.replicas = [self.model]
-        if self.mesh is not None:
+        if self._spatial:
+            S.partition_model(self.model, self.mesh.devices)
+        elif self.mesh is not None:
             self.replicas += M.replicate_tree(self.model, M.Mesh(self.mesh.devices[1:]))
 
     def _anchors_for(self, hw: Tuple[int, int], device=None) -> torch.Tensor:
@@ -189,7 +206,7 @@ class Predictor:
         return self._anchors[hw, device]
 
     def _check_batch(self, b: int) -> None:
-        if self.mesh is not None and b % self.mesh.size:
+        if self.mesh is not None and not self._spatial and b % self.mesh.size:
             raise ValueError(
                 f"batch size {b} must divide the serving mesh size "
                 f"{self.mesh.size} (pad the batch or shrink the mesh)"
@@ -218,8 +235,19 @@ class Predictor:
         """[B, H, W, 3] float32 tensor on the device -> (dets, valid)."""
         if self.mesh is None:
             return self._detect_parts([images])
+        if self._spatial:
+            return self._detect_spatial(images)
         self._check_batch(images.shape[0])
         return self._detect_parts(M.shard_batch(images, self.mesh))
+
+    def _detect_spatial(self, images: torch.Tensor):
+        """The forward over row blocks of every image, then the
+        post-process once on the first device, where the heads arrive
+        gathered."""
+        hw = tuple(images.shape[1:3])
+        with torch.inference_mode():
+            loc, cls, landm = self.model(S.shard_rows(images.permute(0, 3, 1, 2), self.mesh.devices))
+            return postprocess_outputs(loc, cls, landm, self._anchors_for(hw), self.pcfg, self.mcfg.anchors.variance)
 
     # -- entry points --------------------------------------------------------
 
@@ -249,12 +277,13 @@ class Predictor:
         )
         self._check_batch(len(images))
         inputs = tuple(torch.from_numpy(np.stack(p)) for p in (padded, *zip(*parts)))
-        # Each replica letterboxes its own rows on its device.
-        pieces = M.shard_batch(inputs, self.mesh) if self.mesh is not None else [
-            tuple(t.to(self.device) for t in inputs)]
+        # Each replica of a data mesh letterboxes its own rows on its device;
+        # a spatial mesh letterboxes on the first device, then shards.
+        data_mesh = self.mesh is not None and not self._spatial
+        pieces = M.shard_batch(inputs, self.mesh) if data_mesh else [tuple(t.to(self.device) for t in inputs)]
         with torch.inference_mode():
             frames = [I.letterbox_batch_device(*piece) for piece in pieces]
-        dets_b, valid_b = self._detect_parts(frames)
+        dets_b, valid_b = self._detect_parts(frames) if data_mesh else self._detect(frames[0])
         dets_b, valid_b = dets_b.cpu().numpy(), valid_b.cpu().numpy()
         return [
             undo_letterbox_pixels(dets_b[i][valid_b[i]], (th, tw), im.shape[:2], self.pcfg.letterbox)

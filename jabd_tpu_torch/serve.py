@@ -24,7 +24,9 @@ decode_bgr`: PIL, EXIF orientation applied, BGR); an undecodable body gets
 then aligns and embeds the request's faces on its handler thread
 (`IdentityService`); without an embedder it answers 503. A backend over
 a local mesh (`Predictor(mesh=)`, `aot.load_exported(mesh=)`) splits each
-batch across its replicas, so the batch size must divide the mesh size.
+batch across its replicas, so the batch size must divide the mesh size; a
+spatial one (`Predictor(mesh=, partition="spatial")`) splits each image's
+rows instead and takes any batch size, 1 included.
 """
 
 from __future__ import annotations
@@ -66,7 +68,9 @@ class BatchingDetector:
                 f"server with --batch-size {aot_batch}"
             )
         mesh = getattr(backend, "mesh", None)
-        if mesh is not None and self.batch_size % mesh.size:
+        # Only the data partition shards the batch axis (spatial shards
+        # the height and takes any batch size, 1 included).
+        if mesh is not None and getattr(backend, "partition", "data") == "data" and self.batch_size % mesh.size:
             raise ValueError(
                 f"batch size {self.batch_size} must divide the serving "
                 f"mesh size {mesh.size}"

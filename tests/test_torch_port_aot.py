@@ -6,7 +6,8 @@
   `detect_image`), and the JAX package's own artifact of the same
   variables (float32, XLA NMS) within a stated bound;
 - an int8 Predictor exports its int8 graph, equal to live int8;
-- the refusals: batch size, a newer version, another device, an embedder;
+- the refusals: batch size, a newer version, another device, an embedder,
+  a Predictor with a mesh (either partition, as JAX's);
 - a fresh interpreter loads and runs it importing no model code.
 """
 
@@ -138,6 +139,27 @@ def test_refusals(setup, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             aot.load_exported(setup["out"])
+
+
+@pytest.mark.parametrize("partition", ["data", "spatial"])
+def test_a_mesh_predictor_refuses_export(setup, tmp_path, partition):
+    """An artifact is one graph on one device: a Predictor with a mesh of
+    either partition refuses, as `jabd_tpu/aot.py::export_detector` does
+    (its refusal held beside); `load_exported(mesh=)` serves an artifact
+    over a data mesh instead."""
+    from jax.sharding import Mesh as JMesh
+
+    from jabd_tpu_torch.parallel import mesh as M
+
+    pred = Predictor(setup["tcfg"], state_dict_from_flax(setup["variables"]), setup["pred"].pcfg,
+                     mesh=M.make_mesh(["cpu", "cpu"]), partition=partition)
+    with pytest.raises(ValueError, match="export a single-device Predictor"):
+        aot.export_detector(pred, str(tmp_path / "port"), batch_size=BATCH)
+    jmesh = JMesh(np.asarray(jax.devices()[:2]), ("data",))
+    jpred = JPredictor(setup["jcfg"], setup["variables"], JC.PredictConfig(**PCFG), use_pallas=False, mesh=jmesh,
+                       partition=partition)
+    with pytest.raises(ValueError, match="export a single-device Predictor"):
+        JAOT.export_detector(jpred, str(tmp_path / "jax"), batch_size=BATCH, platforms=("cpu",))
 
 
 def test_fresh_interpreter_loads_without_model_code(setup):

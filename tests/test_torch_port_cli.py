@@ -10,8 +10,10 @@
   the JAX CLI's faces on the same `.pth`;
 - `dir-predict` (padded tail batch), `video` on a 3-frame MJPG clip,
   `count`, and an artifact through `export` and `predict --exported`;
-- `--spatial` exits naming the spatial slice, alone and with
-  `--data-parallel` (JAX's text); the data-parallel flags run (held in
+- `--spatial` runs `predict` and `dir-predict` over two row blocks on the
+  CPU (held against one device and the JAX CLI in
+  tests/test_torch_port_spatial.py) and exits with `--data-parallel`
+  (JAX's text); the data-parallel flags run (held in
   tests/test_torch_port_parallel_serve.py and _recognition.py).
 
 Both CLIs build the presets in float32 here (their `get_model_config`
@@ -246,18 +248,26 @@ def test_video_on_a_three_frame_clip(golden_tree, tmp_path, capsys):
          "--microbatches with --shard-head"),
         (["recognition", "train", "--data-root", ".", "--fsdp"], "--fsdp requires --shard-head"),
         (["recognition", "extract", "--image-list", "x", "--out-dir", "o", "--data-parallel"], "No such file"),
-        (["predict", "--image", "x.png", "--spatial"], "the spatial slice"),
-        (["dir-predict", "--input-dir", ".", "--out", "o", "--spatial"], "the spatial slice"),
+        (["predict", "--image", "{image}", "--out", "{out}/p.jpg", "--spatial"], "faces"),
+        (["dir-predict", "--input-dir", "{images}", "--out", "{out}", "--spatial"], "img_1.jpg"),
         (["map-txt", "--val-dir", ".", "--out", "o", "--data-parallel", "--spatial"], "mutually exclusive"),
         (["serve", "--data-parallel", "--spatial"], "mutually exclusive"),
     ],
 )
-def test_later_slices_exit_naming_them(argv, slice_name):
-    """Only --spatial waits for a later slice (the spatial one); the
-    parallel flags now run, up to JAX's own exits (recognition training's
-    flag checks) or, for `extract --data-parallel`, to the missing image
-    list after the mesh is made."""
+def test_later_slices_exit_naming_them(argv, slice_name, golden_tree, tmp_path, capsys):
+    """No flag waits for a later slice now: --spatial runs (two row blocks
+    on the CPU, the golden fixture, `slice_name` in what it prints) and
+    keeps JAX's exit with --data-parallel; the parallel flags run, up to
+    JAX's own exits (recognition training's flag checks) or, for
+    `extract --data-parallel`, to the missing image list after the mesh is
+    made."""
     main = cli.main
+    if "--spatial" in argv and "--data-parallel" not in argv:
+        paths = dict(image=golden_tree["image"], images=os.path.dirname(golden_tree["image"]), out=tmp_path)
+        main([a.format(**paths) for a in argv] + ["--weights", golden_tree["pth"], "--model", GOLDEN,
+                                                  "--input-size", "96", "--device", "cpu,cpu"])
+        assert slice_name in capsys.readouterr().out
+        return
     if argv[0] == "recognition":
         from jabd_tpu_torch.recognition import cli as rcli
 

@@ -59,6 +59,7 @@ PORT_MODULES = [
     "jabd_tpu_torch.parallel",
     "jabd_tpu_torch.parallel.fsdp",
     "jabd_tpu_torch.parallel.mesh",
+    "jabd_tpu_torch.parallel.spatial",
     "jabd_tpu_torch.parallel.spawn",
     "jabd_tpu_torch.pipeline",
     "jabd_tpu_torch.predict",

@@ -12,7 +12,9 @@ shard_map), on the trained golden fixture of tests/test_torch_port_eval.py
 - an artifact served over the mesh (`load_exported(mesh=)`);
 - `BatchingDetector`'s divisibility check;
 - `cli serve / dir-predict / map-txt --data-parallel --device cpu,cpu`
-  against `jabd_tpu.cli ... --data-parallel`, and `--spatial`'s exits.
+  against `jabd_tpu.cli ... --data-parallel`, `--spatial` beside them
+  (tests/test_torch_port_spatial.py holds it to one device) and the
+  flags' exits.
 """
 
 import dataclasses
@@ -120,8 +122,13 @@ def test_indivisible_batch_raises_and_a_mesh_of_one_is_plain(mesh_predictors):
     assert one.mesh is None and len(one.replicas) == 1
     a, b = one.detect_preprocessed(x), tpred.detect_preprocessed(x)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
-    with pytest.raises(NotImplementedError, match="spatial slice"):
-        Predictor(tpred.mcfg, tpred.model.state_dict(), tpred.pcfg, device="cpu", partition="spatial")
+    # partition="spatial" without a mesh of size > 1 is the plain path too
+    # (tests/test_torch_port_spatial.py holds it over a mesh).
+    for mesh in (None, M.make_mesh(["cpu"])):
+        sp = Predictor(tpred.mcfg, tpred.model.state_dict(), tpred.pcfg, fold_bn=False, device="cpu", mesh=mesh,
+                       partition="spatial")
+        assert sp.mesh is None and sp.partition == "spatial"
+        assert all(torch.equal(u, v) for u, v in zip(sp.detect_preprocessed(x), b))
     with pytest.raises(ValueError, match="partition must be"):
         Predictor(tpred.mcfg, tpred.model.state_dict(), tpred.pcfg, device="cpu", partition="height")
 
@@ -272,12 +279,23 @@ def test_cli_serve_data_parallel_live_and_exported(golden_tree, tmp_path, monkey
 @pytest.mark.parametrize(
     "argv,message",
     [
-        (["predict", "--image", "x.png", "--spatial"], "the spatial slice"),
+        (["predict", "--image", "{image}", "--out", "{out}/p.jpg", "--spatial", *CPU2], None),
         (["serve", "--spatial", "--data-parallel"], "mutually exclusive"),
         (["map-txt", "--val-dir", ".", "--out", "o", "--spatial", "--data-parallel"], "mutually exclusive"),
         (["serve", "--device", "cpu,cpu"], "need --data-parallel"),
     ],
 )
-def test_spatial_and_mesh_flag_exits(argv, message):
+def test_spatial_and_mesh_flag_exits(argv, message, golden_tree, tmp_path, capsys):  # noqa: F811
+    """The flags' exits; `predict --spatial` over [cpu, cpu] (message
+    None) now runs and finds the faces one device finds."""
+    if message is None:
+        argv = [a.format(image=golden_tree["image"], out=tmp_path) for a in argv]
+        common = ["--weights", golden_tree["pth"], "--model", GOLDEN, "--input-size", "96"]
+        cli.main(argv + common)
+        got = capsys.readouterr().out
+        cli.main(argv[: argv.index("--spatial")] + common + ["--device", "cpu"])
+        want = capsys.readouterr().out
+        assert "faces" in got and got.splitlines()[0] == want.splitlines()[0]
+        return
     with pytest.raises(SystemExit, match=message):
         cli.main(argv)

@@ -216,6 +216,18 @@ def test_cli_identify_journey(weights, gallery_tree, tmp_path, capsys):
         cli.main(port_id + ["--quantize", "int8"])
 
 
+def test_cli_identify_spatial_matches_one_device(weights, gallery_tree, tmp_path, capsys):
+    """`identify --spatial --device cpu,cpu` (the detector's rows in two
+    blocks) names the faces `--device cpu` names, with the same rows."""
+    probe = tmp_path / "probe.png"
+    _png(probe, _scene(3))
+    rows = {}
+    for name, extra in (("spatial", ["--spatial", "--device", "cpu,cpu"]), ("one", ["--device", "cpu"])):
+        cli.main(["identify", *ID_ARGS, *weights, *extra, "--image", str(probe), "--gallery-dir", str(gallery_tree)])
+        rows[name] = _rows(capsys.readouterr().out)
+    assert len(rows["spatial"]) > 0 and rows["spatial"] == rows["one"]
+
+
 def test_cli_serve_arch_answers_identify(weights, gallery_tree, tmp_path, monkeypatch):
     """The port's daemon from `cli serve --arch` answers POST /identify as
     the JAX package's `cli serve --arch` service does on the same .pth
