@@ -1,7 +1,9 @@
 """Training loss log. Port of `LossHistory` (jabd_tpu/utils/logging.py,
 reference utils/callbacks.py:7-49): one line per epoch appended to
 `<log_dir>/loss_<timestamp>/epoch_loss.txt`, and the loss curve with its
-savgol-smoothed line redrawn to `epoch_loss.png` after every epoch.
+savgol-smoothed line redrawn to `epoch_loss.png` after every epoch. A
+second history made in the same second gets `loss_<timestamp>_1` (and so
+on), which sorts after the first, so two fit calls never share a log.
 matplotlib and scipy are imported only to plot: without matplotlib only
 the txt file is written. A failing plot never stops training."""
 
@@ -17,7 +19,11 @@ class LossHistory:
     def __init__(self, log_dir: str):
         ts = time.strftime("%Y_%m_%d_%H_%M_%S")
         self.save_path = os.path.join(log_dir, f"loss_{ts}")
-        os.makedirs(self.save_path, exist_ok=True)
+        n = 0
+        while os.path.exists(self.save_path):
+            n += 1
+            self.save_path = os.path.join(log_dir, f"loss_{ts}_{n}")
+        os.makedirs(self.save_path)
         self.losses: List[float] = []
         self.plot = True  # False once matplotlib is found missing
 

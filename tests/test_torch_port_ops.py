@@ -168,6 +168,48 @@ def test_recognition_training_path_imports_neither_jax_cv2_nor_the_jax_package(t
     subprocess.run([sys.executable, "-c", code], check=True, cwd=_repo_root())
 
 
+LEARNING_SCRIPTS = [
+    "scripts._torch_synthetic",
+    "scripts.torch_overfit_sanity",
+    "scripts.torch_overfit_device_augment",
+    "scripts.torch_overfit_recognition",
+    "scripts.torch_train_at_scale",
+    "scripts.torch_resume_at_scale",
+    "scripts.torch_train_recognition_at_scale",
+    "scripts.torch_int8_ap_delta",
+    "scripts.torch_int8_verification_delta",
+]
+
+
+def test_learning_scripts_import_neither_jax_cv2_tests_nor_the_jax_package(tmp_path):
+    """The learning proofs' modules and chip_smoke.py (which imports their
+    data generators) in a fresh interpreter, then every generator and a tiny
+    `torch_train_at_scale` run (fit on the device-augment loader, a resume,
+    the sweep and the evaluator) on the CPU: jax, the JAX package, tests/
+    and cv2 never load. The card's machine has no jax, and tests/conftest.py
+    imports it."""
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        import numpy as np, torch
+        torch.set_num_threads(1)
+        for name in {LEARNING_SCRIPTS!r} + ["chip_smoke"]:
+            importlib.import_module(name)
+        from scripts import _torch_synthetic as syn, torch_train_at_scale as T
+        rng = np.random.default_rng(0)
+        syn.build_dataset({str(tmp_path / "mini")!r}, 2, rng)
+        bases = syn.build_identity_tree({str(tmp_path / "ids")!r}, rng, 2, 1)
+        syn.build_val_bundle({str(tmp_path / "val")!r}, bases, rng, pairs=1)
+        T.main(["--steps", "4", "--batch", "4", "--size", "64", "--images", "8", "--src-scale", "0.4",
+                "--model", "mnet_v3_plain", "--device", "cpu", "--root", {str(tmp_path / "scale")!r}])
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "jabd_tpu", "tests", "cv2"))
+        assert not bad, bad
+        """
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=_repo_root())
+
+
 def test_compare_kernels_imports_neither_jax_nor_the_jax_package():
     code = textwrap.dedent(
         """
