@@ -11,16 +11,27 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    inputs on the card, B = 8, K = 5000 and 4999, IoU and DIoU, thresholds
    0.3 and 0.45, n_valid 0 / 1 / 37 / K, duplicate boxes, zero-area boxes
    and grid-aligned boxes (exactly tied metrics); then valid rows that are
-   not a prefix, DIoU at threshold -0.1, K = 64 and 65, and images at the
-   wrapper's largest K. Keep masks must be identical.
+   not a prefix, DIoU at threshold -0.1, K = 64 and 65, K = 12,288 (the
+   old cap), and K 5000 under forced plans (several bands, small column
+   chunks). Then past the old cap: K 12,289, 16,800 (the 640x640
+   anchors), 67,200 (1280x1280: B 2 all valid, and the 8 edge images in
+   DIoU) and 272,000 (re152_4level at 1280, B 1: ~20,000 valid rows
+   scattered; then the preset's jittered anchors 99% valid, every band at
+   work, held to the greedy rule with the plain metric instead of the
+   plain loop), each with its bands, its scratch against the 1 GiB
+   budget, kernel and plain times, device time by kernel and bound. Keep
+   masks must be identical.
 2. Serving: jabd_flagship at full width, 640x640, random weights from a
    seeded torch.Generator (random BatchNorm state, NLM output projection
    non-zero), confidence 0.02. With every launch count set to 0 it runs
    Predictor.detect_preprocessed (float32 with TF32 off, and bfloat16 as
    the preset says) on a batch of 8, detect_image on 3 images and a
    BatchingDetector(batch_size=4) answering 8 requests from 4 threads;
-   each path must launch K1. Then it checks that the plain NMS gives
-   identical detections on the same head outputs, that the float32 heads
+   each path must launch K1; so must Predictors with pre_nms_topk = P
+   (every anchor a candidate: float32 and bf16 at 640 bs 8, K 16,800, and
+   bf16 at 1280 bs 2, K 67,200). Then it checks that the plain NMS gives
+   identical detections on the same head outputs (at pre_nms_topk = P
+   too), that the float32 heads
    on the card match the port on the CPU, times the paths and breaks one
    bf16 batch down by kernel with torch.profiler.
 3. K1's time on the main path's candidates, and its bound; then its time
@@ -32,13 +43,18 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    share a best prior, then GTs whose edge lies exactly on a prior tile's
    bounding box (K2's culling boundary), GTs covering the whole image and
    images whose only valid row is not row 0. Outputs must be
-   bit-identical, and so must the MatchResult built on them.
+   bit-identical, and so must the MatchResult built on them. Then past the
+   old cap of 256 GT rows, G 257 and 1,024 at B 34 and 2,048 at B 8: the
+   same cases and one whose valid rows all lie past row 256, with times,
+   plain times and bounds.
 5. Training (`[train]`): jabd_flagship at 840x840 from the reference's
    seeded init, seeded synthetic images and targets. Each path runs with
    every launch count set to 0 and must launch K2: (a) one float32 step
    (TF32 off) at batch 2 on the card against the same step on the CPU:
    loss and its three terms within 1e-3; (b) ten bfloat16 steps at batch
-   34 on one batch: the loss finite and lower at the end; (c) `fit` over
+   34 on one batch: the loss finite and lower at the end; then one bf16
+   step with max_targets 512 and 300..512 GTs an image against the same
+   step with the plain front half (loss terms within 1e-3); (c) `fit` over
    two epochs (batch 34) across the freeze boundary, then resumed from its
    checkpoint for a third: checkpoints, metrics.csv rows. Then train-step
    times and peak memory, a profiler breakdown of bf16 steps, and K2's
@@ -74,7 +90,7 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    against the host recipes. (d) `detect_images` on mixed sizes, its
    identity-size image against `detect_image` (within 2e-3 px) on the
    golden model, and on the flagship; `nms_cuda.nms` against the plain
-   `nms` at N 5000 and 12,288 (identical), and its raise at N 12,289.
+   `nms` at N 5000, 12,288 and 16,800 (identical).
 8. The other 14 presets (`[presets]`): random weights from a seeded
    torch.Generator with every BatchNorm's statistics set from its own
    input (`calibrate_batchnorms`), so activations stay O(1) at ResNet-152's
@@ -229,7 +245,8 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    steps/s each. Then K2 and K1 against their plain versions at the
    overfit's shapes (B 16, G 4, 128x128 priors; K 64).
 15. One JSON line of every kernel of the port: launches on the main paths,
-   error against the plain version, times and bound.
+   error against the plain version, times and bound, and under "shapes"
+   the same numbers at each shape past the old caps (phases 1 and 4).
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed. Exits non-zero without a CUDA device.
@@ -354,11 +371,13 @@ def _random_boxes(rng, n, lo=0.0, hi=1.0):
     return np.concatenate([cxy - wh / 2, cxy + wh / 2], 1).astype(np.float32)
 
 
-def nms_cases(k: int, seed: int):
-    """[8, k, 4] boxes and [8, k] valid: the edge cases, one per image."""
+def nms_cases(k: int, seed: int, n_long=None):
+    """[8, k, 4] boxes and [8, k] valid: the edge cases, one per image;
+    images 3 to 6 with `n_long` valid rows (default all k)."""
     rng = np.random.default_rng(seed)
     boxes = np.stack([_random_boxes(rng, k) for _ in range(8)])
-    n_valid = [0, 1, 37, k, k, k, k, 37]
+    n_long = k if n_long is None else n_long
+    n_valid = [0, 1, 37, n_long, n_long, n_long, n_long, 37]
     # 4: duplicates, 50 distinct boxes repeated (identical boxes suppress).
     boxes[4] = _random_boxes(rng, 50)[rng.integers(0, 50, k)]
     # 5: zero-area boxes (x2 == x1) among ordinary ones; union can be 0.
@@ -374,9 +393,95 @@ def nms_cases(k: int, seed: int):
     return torch.from_numpy(boxes), torch.from_numpy(valid)
 
 
-def nms_phase(dev, max_k: int) -> float:
+def forced_plan(bsz: int, k: int, bands, chunk: int):
+    """A K1 plan with the given bands and chunk, its scratch sized as
+    nms_cuda.plan sizes it: the path of a large K at a small one."""
+    from jabd_tpu_torch.ops import nms_cuda
+
+    nb = -(-k // nms_cuda.WORD)
+    words = max(bsz * (r1 - r0) * (nb - r0) * nms_cuda.WORD for r0, r1 in bands)
+    return nms_cuda.Plan(tuple(bands), chunk, words, bsz * nb, -(-bsz // 2))
+
+
+def nms_domain_cases():
+    """K1's inputs past the old 12,288 cap, each (name, boxes, valid,
+    thr, kind, by_rule): K 12,289 (random and grid-tied images, all valid),
+    16,800 (the flagship's 640x640 anchors: the 8 edge images), 67,200
+    (1280x1280: two random images all valid; the 8 edge images, their long
+    ones at 20,000 valid rows, past the first of the 3 bands at B 8, so
+    that the plain loop stays short), 272,000 (re152_4level at 1280x1280,
+    one image: ~20,000 valid rows scattered over K; then the preset's own
+    anchors, jittered, in a random score order, 99% valid, so that every
+    band has work). by_rule: the last is held to the greedy rule
+    (`greedy_rule_holds`) instead of the plain loop, whose ~270,000 steps
+    would take minutes."""
+    cases = []
+    boxes, valid = nms_cases(12289, seed=12289)
+    cases.append(("K=12289 iou thr=0.3 images 3, 6", boxes[[3, 6]], valid[[3, 6]], 0.3, "iou", False))
+    boxes, valid = nms_cases(16800, seed=16800)
+    cases.append(("K=16800 iou thr=0.3", boxes, valid, 0.3, "iou", False))
+    rng = np.random.default_rng(67200)
+    two = torch.from_numpy(np.stack([_random_boxes(rng, 67200) for _ in range(2)]))
+    cases.append(("K=67200 iou thr=0.3 all valid", two, torch.ones((2, 67200), dtype=torch.bool), 0.3, "iou",
+                  False))
+    boxes, valid = nms_cases(67200, seed=67200, n_long=20000)
+    cases.append(("K=67200 diou thr=0.3 edge images", boxes, valid, 0.3, "diou", False))
+    rng = np.random.default_rng(272000)
+    one = torch.from_numpy(_random_boxes(rng, 272000)[None])
+    scattered = torch.from_numpy(rng.random((1, 272000)) < 20000 / 272000)
+    cases.append(("K=272000 iou thr=0.3 scattered valid", one, scattered, 0.3, "iou", False))
+    cases.append(("K=272000 iou thr=0.3 re152_4level anchors 99% valid", *anchor_candidates(272000), 0.3, "iou",
+                  True))
+    return cases
+
+
+def anchor_candidates(k: int, seed: int = 272000):
+    """One image of candidates shaped like a detector's at every prior:
+    re152_4level's anchors at 1280x1280 (K of them) as corners, each
+    corner moved by up to 10% of the anchor's size, in a random score
+    order, 99% of them valid. -> (boxes [1, K, 4], valid [1, K])."""
+    from jabd_tpu_torch import configs
+    from jabd_tpu_torch.ops import anchors as A
+
+    pri = A.generate_anchors(configs.get_model_config("re152_4level").anchors, (1280, 1280))
+    check(pri.shape[0] == k, f"re152_4level has {k} anchors at 1280x1280 (got {pri.shape[0]})")
+    rng = np.random.default_rng(seed)
+    wh = np.concatenate([pri[:, 2:], pri[:, 2:]], 1)
+    corners = np.concatenate([pri[:, :2] - pri[:, 2:] / 2, pri[:, :2] + pri[:, 2:] / 2], 1)
+    boxes = (corners + rng.uniform(-0.1, 0.1, corners.shape) * wh).astype(np.float32)
+    boxes = boxes[rng.permutation(k)]
+    return torch.from_numpy(boxes[None]), torch.from_numpy(rng.random((1, k)) < 0.99)
+
+
+def greedy_rule_holds(boxes, valid, keep, thr: float, kind: str, rows: int = 256) -> bool:
+    """Whether keep [B, K] is the plain version's greedy keep mask for
+    (boxes, valid): keep[j] == valid[j] and no kept i < min(j, n_valid)
+    has metric(i, j) > thr, the metric from ops/nms.py (`_metric`, the
+    plain loop's own). The rule fixes the mask position by position, so
+    only the plain loop's mask meets it; it costs kept x K metrics, `rows`
+    kept boxes at a time, in place of n_valid serial steps."""
+    from jabd_tpu_torch.ops import nms as N
+
+    thr_t = torch.tensor(thr, dtype=torch.float32, device=boxes.device)
+    later = torch.arange(valid.shape[1], device=boxes.device)
+    for b in range(valid.shape[0]):
+        bx = boxes[b]
+        areas = (bx[:, 2] - bx[:, 0]) * (bx[:, 3] - bx[:, 1])
+        kept = torch.nonzero(keep[b, : int(valid[b].sum())]).flatten()
+        suppressed = torch.zeros_like(valid[b])
+        for s in range(0, kept.numel(), rows):
+            i = kept[s : s + rows]
+            metric = N._metric(bx[i], bx[None], areas[None], kind, 1.0)  # [rows, K]
+            suppressed |= ((metric > thr_t) & (later[None] > i[:, None])).any(0)
+        if not torch.equal(keep[b], valid[b] & ~suppressed):
+            return False
+    return True
+
+
+def nms_phase(dev, card: str):
     """K1 against the plain NMS on the card (module docstring, phase 1).
-    Returns the largest |kernel - plain| over the keep masks."""
+    Returns the largest |kernel - plain| over the keep masks, and per shape
+    past the old cap its kernels-line numbers."""
     from jabd_tpu_torch.ops import nms as N
     from jabd_tpu_torch.ops import nms_cuda
 
@@ -395,19 +500,84 @@ def nms_phase(dev, max_k: int) -> float:
         small, small_valid = nms_cases(k, seed=k)
         for kind in ("iou", "diou"):
             cases.append((f"K={k} {kind} thr=0.3", small, small_valid, 0.3, kind))
-    large, large_valid = nms_cases(max_k, seed=max_k)  # images 3 (random) and 6 (ties), all valid
-    cases.append((f"K={max_k} (the largest) iou thr=0.3", large[[3, 6]], large_valid[[3, 6]], 0.3, "iou"))
+    large, large_valid = nms_cases(12288, seed=12288)  # images 3 (random) and 6 (ties), all valid
+    cases.append(("K=12288 (the old cap) iou thr=0.3", large[[3, 6]], large_valid[[3, 6]], 0.3, "iou"))
+    # The banded path at K 5000, under forced plans: bands, column chunks.
+    boxes, valid = nms_cases(5000, seed=5000)
+    forced = [
+        ("iou", forced_plan(8, 5000, [(0, 3), (3, 10), (10, 79)], 5)),
+        ("diou", forced_plan(8, 5000, [(0, 1), (1, 2), (2, 40), (40, 79)], 7)),
+    ]
     worst = 0.0
-    for name, boxes, valid, thr, kind in cases:
-        boxes, valid = boxes.to(dev).contiguous(), valid.to(dev).contiguous()
-        got = nms_cuda.nms_keep_sorted(boxes, valid, thr, kind)
-        want = N.nms_keep_sorted(boxes, valid, thr, kind)
+    for name, boxes_, valid_, thr, kind in cases:
+        boxes_, valid_ = boxes_.to(dev).contiguous(), valid_.to(dev).contiguous()
+        got = nms_cuda.nms_keep_sorted(boxes_, valid_, thr, kind)
+        want = N.nms_keep_sorted(boxes_, valid_, thr, kind)
         torch.cuda.synchronize()
         worst = max(worst, float((got.float() - want.float()).abs().max()))
-        print(f"[phase1] {name}: valid/image {valid.sum(1).tolist()} kept/image "
+        print(f"[phase1] {name}: valid/image {valid_.sum(1).tolist()} kept/image "
               f"{want.sum(1).tolist()} mismatches {int((got != want).sum())}")
         check(torch.equal(got, want), f"kernel == plain at {name}")
-    return worst
+    b_d, v_d = boxes.to(dev).contiguous(), valid.to(dev).contiguous()
+    plan = nms_cuda.plan
+    for kind, pl in forced:
+        nms_cuda.plan = lambda bsz, k, pl=pl: pl
+        try:
+            got = nms_cuda.nms_keep_sorted(b_d, v_d, 0.3, kind)
+        finally:
+            nms_cuda.plan = plan
+        want = N.nms_keep_sorted(b_d, v_d, 0.3, kind)
+        torch.cuda.synchronize()
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        print(f"[phase1] K=5000 {kind} thr=0.3 forced plan bands {list(pl.bands)} chunk {pl.chunk}: "
+              f"mismatches {int((got != want).sum())}")
+        check(torch.equal(got, want), f"kernel == plain at K 5000 {kind} under a forced plan")
+    # Past the old cap: each shape checked, timed, bounded.
+    shapes = []
+    budget = nms_cuda.SCRATCH_BYTES
+    for name, boxes_, valid_, thr, kind, by_rule in nms_domain_cases():
+        boxes_, valid_ = boxes_.to(dev).contiguous(), valid_.to(dev).contiguous()
+        b, k = valid_.shape
+        pl = nms_cuda.plan(b, k)
+        got = nms_cuda.nms_keep_sorted(boxes_, valid_, thr, kind)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        if by_rule:
+            same = greedy_rule_holds(boxes_, valid_, got, thr, kind)
+            want = got
+        else:
+            want = N.nms_keep_sorted(boxes_, valid_, thr, kind)
+            same = torch.equal(got, want)
+        end.record()
+        end.synchronize()
+        check_ms = start.elapsed_time(end)
+        plain_ms = None if by_rule else check_ms
+        err = 0.0 if same else 1.0
+        worst = max(worst, err)
+        fn = lambda: nms_cuda.nms_keep_sorted(boxes_, valid_, thr, kind)  # noqa: E731
+        ms = cuda_ms(fn, iters=10, warmup=1)
+        split = device_split(fn, iters=5)
+        dev_ms = sum(split.values()) if split else None
+        bytes_ms = (b * k * (16 + 1) + b * k) / HBM_BYTES_PER_S * 1e3
+        ops_ms = nms_ops(valid_, want, kind) / F32_FLOPS * 1e3
+        held = (f"greedy rule {'holds' if same else 'FAILS'} ({check_ms:.3f} ms; plain loop not run)" if by_rule
+                else f"mismatches {int((got != want).sum())}")
+        print(f"[phase1] {name}: B={b} valid/image {valid_.sum(1).tolist()} kept/image {want.sum(1).tolist()} "
+              f"{held}; {len(pl.bands)} band(s), chunk {pl.chunk}, scratch {pl.scratch_bytes} of the "
+              f"{budget}-byte budget; kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain "
+              f"{'not measured' if plain_ms is None else f'{plain_ms:.3f} ms (one call)'}, bytes bound "
+              f"{bytes_ms:.6f} ms, operations bound {ops_ms:.6f} ms [{card}]")
+        for kernel, t in split.items():
+            print(f"[phase1]   device {t:.4f} ms {kernel[:80]}")
+        check(same, f"kernel == plain at {name}")
+        check(pl.scratch_bytes <= budget, f"K1 scratch within the budget at {name}")
+        shapes.append({"shape": f"B={b} K={k} {kind}" + (" 99% valid" if by_rule else ""), "max_abs_err": err,
+                       "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                       "bands": len(pl.bands), "scratch_bytes": pl.scratch_bytes})
+        del got, want
+    torch.cuda.empty_cache()
+    return worst, shapes
 
 
 def nms_ops(valid, keep_plain, kind):
@@ -545,7 +715,7 @@ def tie_targets(rng, priors, b, g):
         elif kind == 2:
             valid[i] = rng.random(g) < 0.4
         else:
-            boxes[i, 1::2] = boxes[i, 0::2] + np.float32(0.003)
+            boxes[i, 1::2] = boxes[i, 0::2][: g // 2] + np.float32(0.003)
     return boxes, labels, landms, valid
 
 
@@ -616,43 +786,99 @@ def reset_counts():
     matching_cuda.match_front.launches = 0
 
 
+def match_cases(rng, priors_np, b, g):
+    """K2's phase-4 cases at B images of G rows: (name, arrays)."""
+    from jabd_tpu_torch.data.wider import batch_targets
+
+    cases = [
+        (f"spread 0..{g}", batch_targets(face_rows(rng, spread_counts(b, g)), g)),
+        ("ties", tie_targets(rng, priors_np, b, g)),
+        ("tile edges, whole image, single row", edge_targets(rng, priors_np, b, g)),
+    ]
+    if g > 256:  # every valid row past the kernel's first chunk of 256
+        boxes, labels, landms, valid = tie_targets(rng, priors_np, b, g)
+        valid[:, :256] = False
+        cases.append(("valid rows only past row 256", (boxes, labels, landms, valid)))
+    return cases
+
+
+def match_check(dev, priors, name, arrays, tag) -> float:
+    """K2 against the plain front half on `arrays`, outputs and
+    MatchResult; returns the largest |kernel - plain|."""
+    from jabd_tpu_torch.ops import matching as M
+    from jabd_tpu_torch.ops import matching_cuda
+
+    t = to_targets(arrays, dev)
+    b, g = t.valid.shape
+    got = matching_cuda.match_front(t.boxes, priors, t.valid)
+    want = M.match_front_plain(t.boxes, priors, t.valid)
+    torch.cuda.synchronize()
+    mism = [int((x != y).sum()) for x, y in zip(got, want)]
+    bits = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    err = max(float((x.double() - y.double()).abs().max()) for x, y in zip(got, want))
+    del got, want
+    args = (0.35, t.boxes, priors, (0.1, 0.2), t.labels, t.landms, t.valid)
+    r_k = M.match_batch(*args, front=matching_cuda.match_front)
+    r_p = M.match_batch(*args, front=M.match_front_plain)
+    same = all(torch.equal(x, y) for x, y in zip(r_k, r_p))
+    counts = t.valid.sum(1)
+    print(f"{tag} K2 {name}: B={b} G={g} P={priors.shape[0]}, valid GTs per image "
+          f"min {int(counts.min())} max {int(counts.max())} total {int(counts.sum())}; "
+          f"mismatches (overlap, idx, best prior) {mism}, overlaps bit-identical {bits}, "
+          f"MatchResult identical {same}, positives {int((r_k.conf_t != 0).sum())}")
+    check(mism == [0, 0, 0] and bits and same, f"K2 == plain on {name} at G {g}")
+    return err
+
+
 def matching_phase(dev, priors_np, tag: str = "[phase4]"):
     """K2 against the plain front half on the card at B 34, G 128 and the
     840x840 priors `priors_np`. Returns the largest |kernel - plain| over
     all outputs."""
-    from jabd_tpu_torch.data.wider import batch_targets
+    rng = np.random.default_rng(4)
+    priors = torch.from_numpy(priors_np).to(dev)
+    return max(match_check(dev, priors, name, arrays, tag) for name, arrays in match_cases(rng, priors_np, 34, 128))
+
+
+# K2 past the old cap of 256 GT rows: B and G. G 2,048 at B 8, since the
+# plain version holds several [B, G, P] tensors.
+MATCH_DOMAIN = ((34, 257), (34, 1024), (8, 2048))
+
+
+def matching_domain_phase(dev, priors_np, card: str):
+    """K2 against the plain front half past 256 GT rows (MATCH_DOMAIN, the
+    840x840 priors): the phase-4 cases and one with valid rows only past
+    the first chunk, each bit-identical; per shape the spread case's time,
+    plain time and bound. Returns (largest |kernel - plain|, per shape its
+    kernels-line numbers)."""
     from jabd_tpu_torch.ops import matching as M
     from jabd_tpu_torch.ops import matching_cuda
 
-    rng = np.random.default_rng(4)
-    b, g = 34, 128
     priors = torch.from_numpy(priors_np).to(dev)
-    cases = [
-        ("spread 0..128", batch_targets(face_rows(rng, spread_counts(b, g)), g)),
-        ("ties", tie_targets(rng, priors_np, b, g)),
-        ("tile edges, whole image, single row", edge_targets(rng, priors_np, b, g)),
-    ]
-    worst = 0.0
-    for name, arrays in cases:
-        t = to_targets(arrays, dev)
-        got = matching_cuda.match_front(t.boxes, priors, t.valid)
-        want = M.match_front_plain(t.boxes, priors, t.valid)
-        torch.cuda.synchronize()
-        mism = [int((x != y).sum()) for x, y in zip(got, want)]
-        bits = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
-        err = max(float((x.double() - y.double()).abs().max()) for x, y in zip(got, want))
-        worst = max(worst, err)
-        args = (0.35, t.boxes, priors, (0.1, 0.2), t.labels, t.landms, t.valid)
-        r_k = M.match_batch(*args, front=matching_cuda.match_front)
-        r_p = M.match_batch(*args, front=M.match_front_plain)
-        same = all(torch.equal(x, y) for x, y in zip(r_k, r_p))
-        counts = t.valid.sum(1)
-        print(f"{tag} K2 {name}: B={b} G={g} P={priors.shape[0]}, valid GTs per image "
-              f"min {int(counts.min())} max {int(counts.max())} total {int(counts.sum())}; "
-              f"mismatches (overlap, idx, best prior) {mism}, overlaps bit-identical {bits}, "
-              f"MatchResult identical {same}, positives {int((r_k.conf_t != 0).sum())}")
-        check(mism == [0, 0, 0] and bits and same, f"K2 == plain on {name}")
-    return worst
+    p = priors.shape[0]
+    worst, shapes = 0.0, []
+    for b, g in MATCH_DOMAIN:
+        rng = np.random.default_rng(g)
+        cases = match_cases(rng, priors_np, b, g)
+        for name, arrays in cases:
+            worst = max(worst, match_check(dev, priors, name, arrays, "[phase4]"))
+        t = to_targets(cases[0][1], dev)
+        fn = lambda: matching_cuda.match_front(t.boxes, priors, t.valid)  # noqa: E731
+        ms = cuda_ms(fn, iters=20)
+        dev_ms = device_ms(fn)
+        plain_ms = cuda_ms(lambda: M.match_front_plain(t.boxes, priors, t.valid), iters=3, warmup=1)
+        nbytes = t.boxes.numel() * 4 + t.valid.numel() + priors.numel() * 4 + b * p * 12 + b * g * 8
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = match_ops(t.boxes, t.valid, priors, matching_cuda._library().jabd_match_tile()) / F32_FLOPS * 1e3
+        print(f"[phase4] K2 match_front B={b} G={g} P={p}, {int(t.valid.sum())} valid GTs ({cases[0][0]}): "
+              f"kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bytes bound "
+              f"{bytes_ms:.6f} ms, operations bound {ops_ms:.6f} ms, tile_key scratch "
+              f"{b * -(-p // 1024) * g * 8} bytes [{card}]")
+        shapes.append({"shape": f"B={b} G={g} P={p}", "max_abs_err": worst, "ms": ms, "device_ms": dev_ms,
+                       "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+        del t
+        torch.cuda.empty_cache()
+    return worst, shapes
 
 
 def train_phase(card, dev, preset):
@@ -721,6 +947,31 @@ def train_phase(card, dev, preset):
     vals = [float(v) for v in losses16]
     print(f"[train] (b) bf16 bs34 losses over 10 steps {[round(v, 4) for v in vals]}")
     check(all(np.isfinite(vals)) and vals[-1] < vals[0], "bf16 loss finite and lower after 10 steps")
+
+    # (b2) bfloat16, batch 34, max_targets 512 with 300..512 GTs an image
+    # (K2 past one chunk of 256 rows): one step with K2 against one with the
+    # plain front half, from the same seeded state.
+    tcfg512 = dataclasses.replace(tcfg, max_targets=512)
+    rng512 = np.random.default_rng(512)
+    targets512 = to_targets(batch_targets(face_rows(rng512, rng512.integers(300, 513, bsz)), 512), dev)
+    losses512 = {}
+    for impl in ("auto", "plain"):
+        cfg_i = dataclasses.replace(tcfg512, matching_impl=impl)
+        state_i = T.create_train_state(preset, cfg_i, 1, freeze_backbone=False, device=dev)
+        step_i = T.make_train_step(preset, cfg_i)
+        run = lambda: step_i(state_i, images34, targets512, anchors)  # noqa: E731
+        _, m = driven("train_step bf16 bs34 max_targets=512", run) if impl == "auto" else run()
+        losses512[impl] = {k: float(m[k]) for k in ("loss", "loss_l", "loss_c", "loss_landm")}
+        del state_i
+    for k, want in losses512["plain"].items():
+        got = losses512["auto"][k]
+        rel = abs(got - want) / max(abs(want), 1e-12)
+        print(f"[train] (b2) bf16 bs34 max_targets=512 ({int(targets512.valid.sum())} valid GTs, "
+              f"{int(targets512.valid.sum(1).min())}..{int(targets512.valid.sum(1).max())} an image) {k}: "
+              f"K2 {got:.7f} plain front {want:.7f} rel err {rel:.3e}")
+        check(np.isfinite(got) and rel <= 1e-3, f"max_targets=512 step: {k} with K2 within 1e-3 of the plain front's")
+    del targets512
+    torch.cuda.empty_cache()
 
     # (c) fit: two epochs across the freeze boundary, then resumed.
     with tempfile.TemporaryDirectory() as tmp:
@@ -1522,8 +1773,7 @@ def _wider_paths(card, dev, preset, state, tmp):
     check(all(np.isfinite(d).all() and d.shape[1] == 15 for d in flag), "flagship detect_images dets finite")
     print(f"[wider] (d) detect_images: golden fixture rows {[len(d) for d in outs]}, identity image vs "
           f"detect_image max err {ident_err:.3e} px; flagship bf16 rows {[len(d) for d in flag]}")
-    max_k = nms_cuda._library().jabd_nms_max_k()
-    for n in (5000, max_k):
+    for n in (5000, 12288, 16800):  # 16,800: past the old cap of 12,288
         boxes = torch.from_numpy(np.clip(_random_boxes(rng, n), 0, 1)).to(dev)
         boxes[: n // 10] = boxes[0]
         scores = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev)
@@ -1534,11 +1784,6 @@ def _wider_paths(card, dev, preset, state, tmp):
         torch.cuda.synchronize()
         check(torch.equal(idx, pidx) and torch.equal(ok, pok), f"nms_cuda.nms == plain nms at N {n}")
         print(f"[wider] (d) nms_cuda.nms N={n}: {int(ok.sum())} kept, identical to the plain nms")
-    try:
-        nms_cuda.nms(torch.zeros((max_k + 1, 4), device=dev), torch.zeros(max_k + 1, device=dev))
-        check(False, f"nms_cuda.nms raises at N {max_k + 1}")
-    except ValueError as e:
-        print(f"[wider] (d) nms_cuda.nms N={max_k + 1} raises: {e}")
     print(f"[wider] K1 launches per path {launches}")
     return {"launches": sum(launches.values()), "max_abs_err": worst}
 
@@ -3984,7 +4229,7 @@ def main() -> int:
         print_ptxas(name, log)
 
     # -- phase 1: kernel against plain ---------------------------------------
-    worst = nms_phase(dev, nms_cuda._library().jabd_nms_max_k())
+    worst, k1_shapes = nms_phase(dev, card)
 
     # -- phase 2: the slice on the main path ---------------------------------
     preset = configs.get_model_config("jabd_flagship")
@@ -4024,6 +4269,17 @@ def main() -> int:
     served = counted("BatchingDetector bf16", serve_all)
     stats = server.stats()
     server.close()
+    # pre_nms_topk = P: every anchor is a candidate (K1 past the old 12,288
+    # cap), at 640 bs 8 and at 1280 bs 2.
+    n640, n1280 = (A.num_anchors(preset.anchors, (s, s)) for s in (640, 1280))
+    pcfg_all = configs.PredictConfig(confidence=0.02, input_shape=(640, 640), pre_nms_topk=n640)
+    pcfg_all1280 = configs.PredictConfig(confidence=0.02, input_shape=(1280, 1280), pre_nms_topk=n1280)
+    all_paths = [("f32 640 bs8", Predictor(cfg32, state, pcfg_all, device="cuda"), batch8, pcfg_all),
+                 ("bf16 640 bs8", Predictor(preset, state, pcfg_all, device="cuda"), batch8, pcfg_all),
+                 ("bf16 1280 bs2", Predictor(preset, state, pcfg_all1280, device="cuda"),
+                  np.random.default_rng(1280).normal(0, 50, (2, 1280, 1280, 3)).astype(np.float32), pcfg_all1280)]
+    all_dets = [counted(f"detect_preprocessed {tag} pre_nms_topk={pc.pre_nms_topk}",
+                        lambda p=p, x=x: p.detect_preprocessed(x)) for tag, p, x, pc in all_paths]
     main_launches = counter.launches
     print(f"[phase2] launches per path {per_path}; server {stats}")
     for name, n in per_path.items():
@@ -4056,6 +4312,48 @@ def main() -> int:
         kernel_inputs[tag] = (cand_boxes.contiguous(), cand_valid.contiguous())
         print(f"[phase2] {tag}: kernel and plain NMS give identical detections; "
               f"n_valid per image {cand_valid.sum(1).tolist()}")
+
+    # The same at pre_nms_topk = P.
+    for (tag, p, x, pc), (dets, valid) in zip(all_paths, all_dets):
+        hw = pc.input_shape
+        anc = torch.from_numpy(A.generate_anchors(preset.anchors, hw).copy()).to(dev)
+        with torch.inference_mode():
+            heads = p.model(torch.from_numpy(x).to(dev).permute(0, 3, 1, 2))
+            d_k, v_k = postprocess_outputs(*heads, anc, pc, var)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            d_p, v_p = postprocess_outputs(*heads, anc, pc, var, keep_fn=N.nms_keep_sorted)
+            end.record()
+            cand_boxes, _, cand_valid, _ = select_candidates(*heads, anc, pc, var)
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        bsz, k = cand_valid.shape
+        cand_boxes, cand_valid = cand_boxes.contiguous(), cand_valid.contiguous()
+        fn = lambda: nms_cuda.nms_keep_sorted(cand_boxes, cand_valid, pc.nms_iou, pc.nms_kind)  # noqa: E731
+        k1_ms, k1_dev = cuda_ms(fn, iters=10, warmup=1), device_ms(fn, iters=5)
+        # The operations bound counts the kernel's keep mask: the plain
+        # postprocess gave the same detections above.
+        bytes_ms = (bsz * k * (16 + 1) + bsz * k) / HBM_BYTES_PER_S * 1e3
+        ops_ms = nms_ops(cand_valid, fn(), pc.nms_kind) / F32_FLOPS * 1e3
+        check(k == anc.shape[0] > 12288, f"{tag}: every anchor a candidate")
+        check(tuple(dets.shape) == (bsz, pc.max_detections, 15) and bool(torch.isfinite(dets).all()),
+              f"{tag} pre_nms_topk=P: dets finite, shaped")
+        check(torch.equal(v_k, v_p) and torch.equal(d_k, d_p), f"{tag} pre_nms_topk=P: kernel dets == plain dets")
+        err = float((d_k - d_p).abs().max())
+        pl = nms_cuda.plan(bsz, k)
+        print(f"[phase2] {tag} pre_nms_topk={pc.pre_nms_topk}: kernel and plain NMS give identical detections; "
+              f"K={k}, {len(pl.bands)} band(s), n_valid per image "
+              f"{cand_valid.sum(1).tolist()}, detect_preprocessed valid dets {valid.sum(1).tolist()}; K1 on "
+              f"these candidates {k1_ms:.4f} ms (device {fmt_ms(k1_dev)}), the plain postprocess {plain_ms:.3f} ms "
+              f"(one call), bytes bound {bytes_ms:.6f} ms, operations bound {ops_ms:.6f} ms [{card}]")
+        k1_shapes.append({"shape": f"B={bsz} K={k} {pc.nms_kind}, {tag} serving at pre_nms_topk=P",
+                          "max_abs_err": err, "ms": k1_ms, "device_ms": k1_dev, "plain_ms": plain_ms,
+                          "bound_ms": max(bytes_ms, ops_ms),
+                          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                          "bands": len(pl.bands), "scratch_bytes": pl.scratch_bytes})
+        del heads, d_k, d_p, cand_boxes, cand_valid
+    del all_paths, all_dets
+    torch.cuda.empty_cache()
 
     # Float32 heads on the card against the port on the CPU (640x640, bs 1).
     cpu_model = build_model(cfg32, mode="eval", device="cpu")
@@ -4160,8 +4458,9 @@ def main() -> int:
     # -- phases 4 and 5: matching kernel, training path ----------------------
     anchors840 = A.generate_anchors(preset.anchors, (840, 840)).copy()
     k2_worst = matching_phase(dev, anchors840)
+    k2_dom_worst, k2_shapes = matching_domain_phase(dev, anchors840, card)
     k2 = train_phase(card, dev, preset)
-    k2["max_abs_err"] = max(k2["max_abs_err"], k2_worst)
+    k2["max_abs_err"] = max(k2["max_abs_err"], k2_worst, k2_dom_worst)
 
     # -- phase 6: training input ---------------------------------------------
     k2_aug = augment_phase(card, dev, preset)
@@ -4208,6 +4507,8 @@ def main() -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        # Past the old cap of 12,288 candidates ([phase1]).
+        "shapes": k1_shapes,
     }, {
         "name": "match_front",
         "route": "cuda",
@@ -4218,6 +4519,8 @@ def main() -> int:
         # No single torch call computes the front half (per-prior best GT
         # and per-GT best prior over the IoU matrix).
         "library_ms": None,
+        # Past the old cap of 256 GT rows ([phase4]).
+        "shapes": k2_shapes,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,20 +13,24 @@
 // Layout: grid (ceil(P / 1024) tiles, B); a block of 256 threads owns a tile
 // of 1024 priors, 4 per thread at stride 256 (warps read and write
 // neighbouring priors), with their corners, areas and running best
-// (overlap, g) in registers. The image's GT rows (<= 256, one per thread)
-// sit in shared memory.
+// (overlap, g) in registers. The image's GT rows are walked in chunks of
+// 256 (one row per thread), in ascending order; a chunk's rows sit in
+// shared memory while it is in use. Any G: G <= 256 is one chunk.
 //
-// 1. Tile culling. The block reduces its priors' corners to the tile's
-//    bounding box (PX1, PY1, PX2, PY2), from the same corner arithmetic as
-//    the IoU. A valid GT with fminf(tx2, PX2) - fmaxf(tx1, PX1) <= 0 (or the
-//    same in y) has iw or ih = 0 on every prior of the tile, since min, max
-//    and rounded subtraction are monotone, so its IoU there is +0 exactly
-//    (union > 0). Such a GT costs O(1): its tile maximum is (+0, the tile's
-//    first prior), and per prior it only matters as the image's first valid
-//    row j0, the argmax when every overlap is 0. So each prior's running
-//    best starts at (+0, j0) when the image has a valid row, else (-1, 0),
-//    and only the unculled valid rows are visited, in ascending order, with
-//    a strict '>': the first of tied maxima stays, as torch.argmax keeps it.
+// 1. Tile culling, per chunk. The block reduces its priors' corners to the
+//    tile's bounding box (PX1, PY1, PX2, PY2), from the same corner
+//    arithmetic as the IoU. A valid GT with fminf(tx2, PX2) - fmaxf(tx1,
+//    PX1) <= 0 (or the same in y) has iw or ih = 0 on every prior of the
+//    tile, since min, max and rounded subtraction are monotone, so its IoU
+//    there is +0 exactly (union > 0). Such a GT costs O(1): its tile maximum
+//    is (+0, the tile's first prior), and per prior it only matters as the
+//    image's first valid row j0, the argmax when every overlap is 0. So j0
+//    is found over all G before the first chunk (at the barrier that also
+//    joins the tile's box), each prior's running best starts at (+0, j0), or
+//    (-1, 0) when the image has no valid row, and only the unculled valid
+//    rows are visited, chunk after chunk in ascending order, with a strict
+//    '>' (the first of tied maxima stays, as torch.argmax keeps it, across
+//    chunks too).
 // 2. Per-GT best prior in a warp. Valid rows give IoU >= +0, whose float
 //    bits order as uint32: __reduce_max_sync on the bits, then
 //    __reduce_min_sync on the prior index of the lanes holding the maximum
@@ -36,9 +40,10 @@
 //    key (IoU bits << 32 | ~p) of its tile maximum to scratch, fences and
 //    counts itself on a per-image counter; the last block of the image takes
 //    the largest key over the tiles (the largest IoU, then the lowest p,
-//    which is the first tile on ties), writes best_prior_idx as int64 and
-//    resets the counter to 0 for the next launch. The wrapper allocates the
-//    counters zeroed once per device and stream.
+//    which is the first tile on ties) for every GT, 256 at a time, writes
+//    best_prior_idx as int64 and resets the counter to 0 for the next
+//    launch. The wrapper allocates the counters zeroed once per device and
+//    stream.
 //
 // Bit-exactness: prior corners from cxcywh as the plain version computes them
 // (cx - w / 2, ...), areas and the IoU in its operation order with IEEE
@@ -48,17 +53,22 @@
 // from torch only on NaN and on negative zero).
 //
 // What bounds it on an H100: it reads B*G*17 + P*16 bytes and writes B*P*12
-// + B*G*8 (plus B*T*G*8 of scratch), and does ~13 float operations per
+// + B*G*8 (plus B*T*G*8 of scratch: 16 MB at B 34, G 2,048, P 29,126), and
+// does ~13 float operations per
 // (valid GT, prior) pair in the dense count; culling leaves only the pairs
 // whose GT meets the tile's box, a few horizontal strips per pyramid level
 // for a small face, and all of them on the coarsest level's tiles. What
 // remains is latency per visited row: the IoU of 4 priors, two warp
 // reductions and a shared-memory store, serial over the block's visited
-// rows (up to G on the last tiles), then the image's last block. At 64
+// rows (up to G on the last tiles; three barriers a chunk), then the
+// image's last block. At 64
 // registers 4 blocks fit an SM, so the 986 blocks of B 34 at 840x840 run in
-// two waves. Tried and slower: starting the last (heaviest) tiles first,
-// unrolling the row loop, capping registers for more blocks per SM (spills),
-// and culling again per warp with 4 consecutive priors per thread.
+// two waves. The row loop tests no prior against P: with the chunk loop
+// around it the compiler kept no predicate registers for that test and
+// rebuilt it from tid on every row (5-7% slower at G 128). Tried and
+// slower: starting the last (heaviest) tiles first, unrolling the row loop,
+// capping registers for more blocks per SM (spills), and culling again per
+// warp with 4 consecutive priors per thread.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -72,7 +82,7 @@ constexpr int kThreads = 256;
 constexpr int kPerThread = 4;
 constexpr int kTile = kThreads * kPerThread;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = kThreads;  // one GT row per thread in the set-up
+constexpr int kChunk = kThreads;  // GT rows a chunk: one per thread
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_min(float v) {
@@ -104,10 +114,10 @@ match_front_kernel(const float4* __restrict__ truths,  // [B, G] of (x1, y1, x2,
                    u64* tile_key,                      // [B, T, G] scratch
                    unsigned* counters,                 // [B], zero between launches
                    int g, int p) {
-  __shared__ float s_x1[kMaxG], s_y1[kMaxG], s_x2[kMaxG], s_y2[kMaxG];
-  __shared__ float s_area[kMaxG];
-  __shared__ int s_rows[kMaxG];  // unculled valid rows, ascending
-  __shared__ u64 s_key[kMaxG][kWarps];
+  __shared__ float s_x1[kChunk], s_y1[kChunk], s_x2[kChunk], s_y2[kChunk];
+  __shared__ float s_area[kChunk];
+  __shared__ int s_rows[kChunk];  // the chunk's unculled valid rows, ascending
+  __shared__ u64 s_key[kChunk][kWarps];
   __shared__ float s_box[kWarps][4];
   __shared__ int s_hits[kWarps];
   __shared__ int s_first[kWarps];
@@ -120,6 +130,8 @@ match_front_kernel(const float4* __restrict__ truths,  // [B, G] of (x1, y1, x2,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int base = tile * kTile;
+  const float4* trow = truths + static_cast<size_t>(b) * g;
+  const uint8_t* vrow = valid + static_cast<size_t>(b) * g;
 
   // This tile's priors and their bounding box.
   float px1[kPerThread], py1[kPerThread], px2[kPerThread], py2[kPerThread];
@@ -155,50 +167,34 @@ match_front_kernel(const float4* __restrict__ truths,  // [B, G] of (x1, y1, x2,
     s_box[warp][3] = by2;
   }
 
-  // This thread's GT row.
-  const int j = tid;
+  // This thread's GT row of the first chunk, and its first valid row of any
+  // chunk, for j0: the image's first valid row.
+  int j = tid;
+  float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   bool v = false;
-  float tx1 = 0.0f, ty1 = 0.0f, tx2 = 0.0f, ty2 = 0.0f;
   if (j < g) {
-    const float4 t = truths[static_cast<size_t>(b) * g + j];
-    tx1 = t.x;
-    ty1 = t.y;
-    tx2 = t.z;
-    ty2 = t.w;
-    s_x1[j] = tx1;
-    s_y1[j] = ty1;
-    s_x2[j] = tx2;
-    s_y2[j] = ty2;
-    s_area[j] = (tx2 - tx1) * (ty2 - ty1);
-    v = valid[static_cast<size_t>(b) * g + j] != 0;
+    t = trow[j];
+    v = vrow[j] != 0;
   }
+  int first = v ? j : INT32_MAX;
+  for (int jj = j + kChunk; first == INT32_MAX && jj < g; jj += kChunk) {
+    if (vrow[jj] != 0) first = jj;
+  }
+  first = static_cast<int>(__reduce_min_sync(kFull, static_cast<unsigned>(first)));
+  if (lane == 0) s_first[warp] = first;
   __syncthreads();
+  int j0 = INT32_MAX;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) {
     bx1 = fminf(bx1, s_box[w][0]);
     by1 = fminf(by1, s_box[w][1]);
     bx2 = fmaxf(bx2, s_box[w][2]);
     by2 = fmaxf(by2, s_box[w][3]);
-  }
-  const bool hit = v && fminf(tx2, bx2) - fmaxf(tx1, bx1) > 0.0f &&
-                   fminf(ty2, by2) - fmaxf(ty1, by1) > 0.0f;
-  const unsigned hits = __ballot_sync(kFull, hit);
-  const unsigned valids = __ballot_sync(kFull, v);
-  if (lane == 0) {
-    s_hits[warp] = __popc(hits);
-    s_first[warp] = valids ? warp * 32 + __ffs(valids) - 1 : INT32_MAX;
-  }
-  __syncthreads();
-  int offset = 0, n_hit = 0, j0 = INT32_MAX;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    offset += w < warp ? s_hits[w] : 0;
-    n_hit += s_hits[w];
     j0 = min(j0, s_first[w]);
   }
-  if (hit) s_rows[offset + __popc(hits & ((1u << lane) - 1u))] = j;
-  __syncthreads();
 
+  // Running best per prior: (+0, j0), or (-1, 0) when the image has no
+  // valid row; only a visited row with a larger overlap replaces it.
   float best[kPerThread];
   int bidx[kPerThread];
 #pragma unroll
@@ -206,47 +202,84 @@ match_front_kernel(const float4* __restrict__ truths,  // [B, G] of (x1, y1, x2,
     best[k] = j0 == INT32_MAX ? -1.0f : 0.0f;
     bidx[k] = j0 == INT32_MAX ? 0 : j0;
   }
-
-  for (int q = 0; q < n_hit; ++q) {
-    const int r = s_rows[q];
-    const float rx1 = s_x1[r], ry1 = s_y1[r], rx2 = s_x2[r], ry2 = s_y2[r];
-    const float area_t = s_area[r];
-    unsigned gv = 0u, gi = kFull;  // (IoU bits, prior) of this thread's first maximum
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      if (!in[k]) continue;
-      const float iw = fmaxf(fminf(rx2, px2[k]) - fmaxf(rx1, px1[k]), 0.0f);
-      const float ih = fmaxf(fminf(ry2, py2[k]) - fmaxf(ry1, py1[k]), 0.0f);
-      const float inter = iw * ih;
-      float iou = 0.0f;
-      if (inter != 0.0f) iou = inter / ((area_t + parea[k]) - inter);
-      if (iou > best[k]) {
-        best[k] = iou;
-        bidx[k] = r;
-      }
-      const unsigned bits = __float_as_uint(iou);
-      if (bits > gv || gi == kFull) {  // k ascending is p ascending: the first p stays
-        gv = bits;
-        gi = base + k * kThreads + tid;
-      }
-    }
-    const unsigned wmax = __reduce_max_sync(kFull, gv);
-    const unsigned wmin = __reduce_min_sync(kFull, gv == wmax ? gi : kFull);
-    if (lane == 0) s_key[r][warp] = make_key(wmax, wmin);
-  }
-  __syncthreads();
-
-  // Per valid GT, this tile's maximum; a culled row scores +0 on every
-  // prior of the tile, so its first maximum is the tile's first prior.
   u64* keys = tile_key + (static_cast<size_t>(b) * ntiles + tile) * g;
-  if (v) {
-    u64 key = make_key(0u, base);
-    if (hit) {
-      key = s_key[j][0];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) key = max_key(key, s_key[j][w]);
+
+  // Chunk after chunk. A chunk's shared rows, keys and counts are rewritten
+  // only after every thread has passed the barriers that end their last
+  // reads in the chunk before, so a chunk needs no barrier of its own first.
+  for (int c0 = 0; c0 < g; c0 += kChunk, j += kChunk) {
+    if (c0 > 0) {  // the first chunk's row is already loaded
+      t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v = false;
+      if (j < g) {
+        t = trow[j];
+        v = vrow[j] != 0;
+      }
     }
-    keys[j] = key;
+    if (j < g) {
+      s_x1[tid] = t.x;
+      s_y1[tid] = t.y;
+      s_x2[tid] = t.z;
+      s_y2[tid] = t.w;
+      s_area[tid] = (t.z - t.x) * (t.w - t.y);
+    }
+    const bool hit = v && fminf(t.z, bx2) - fmaxf(t.x, bx1) > 0.0f &&
+                     fminf(t.w, by2) - fmaxf(t.y, by1) > 0.0f;
+    const unsigned hits = __ballot_sync(kFull, hit);
+    if (lane == 0) s_hits[warp] = __popc(hits);
+    __syncthreads();
+    int offset = 0, n_hit = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      offset += w < warp ? s_hits[w] : 0;
+      n_hit += s_hits[w];
+    }
+    if (hit) s_rows[offset + __popc(hits & ((1u << lane) - 1u))] = tid;
+    __syncthreads();
+
+    for (int q = 0; q < n_hit; ++q) {
+      const int r = s_rows[q];
+      const float rx1 = s_x1[r], ry1 = s_y1[r], rx2 = s_x2[r], ry2 = s_y2[r];
+      const float area_t = s_area[r];
+      unsigned gv = 0u, gi = kFull;  // (IoU bits, prior) of this thread's first maximum
+      // Every k, in range or not: a prior past P has zero corners, so its
+      // IoU is +0 and it never beats an in-range prior of the tile, whose p
+      // is lower (no test of in[k] in this loop, which the compiler would
+      // otherwise rebuild from tid on every row).
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) {
+        const float iw = fmaxf(fminf(rx2, px2[k]) - fmaxf(rx1, px1[k]), 0.0f);
+        const float ih = fmaxf(fminf(ry2, py2[k]) - fmaxf(ry1, py1[k]), 0.0f);
+        const float inter = iw * ih;
+        float iou = 0.0f;
+        if (inter != 0.0f) iou = inter / ((area_t + parea[k]) - inter);
+        if (iou > best[k]) {
+          best[k] = iou;
+          bidx[k] = c0 + r;
+        }
+        const unsigned bits = __float_as_uint(iou);
+        if (bits > gv || gi == kFull) {  // k ascending is p ascending: the first p stays
+          gv = bits;
+          gi = base + k * kThreads + tid;
+        }
+      }
+      const unsigned wmax = __reduce_max_sync(kFull, gv);
+      const unsigned wmin = __reduce_min_sync(kFull, gv == wmax ? gi : kFull);
+      if (lane == 0) s_key[r][warp] = make_key(wmax, wmin);
+    }
+    __syncthreads();
+
+    // Per valid GT, this tile's maximum; a culled row scores +0 on every
+    // prior of the tile, so its first maximum is the tile's first prior.
+    if (v) {
+      u64 key = make_key(0u, base);
+      if (hit) {
+        key = s_key[tid][0];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) key = max_key(key, s_key[tid][w]);
+      }
+      keys[j] = key;
+    }
   }
 
 #pragma unroll
@@ -264,24 +297,22 @@ match_front_kernel(const float4* __restrict__ truths,  // [B, G] of (x1, y1, x2,
   if (tid == 0) s_last = atomicAdd(&counters[b], 1u) == static_cast<unsigned>(ntiles - 1);
   __syncthreads();
   if (!s_last) return;
-  if (j < g) {
+  for (int jj = tid; jj < g; jj += kThreads) {
     int64_t out = 0;  // a padded row scores -1 everywhere: argmax 0
-    if (v) {
+    if (vrow[jj] != 0) {
       u64 key = 0ull;
 #pragma unroll 8
-      for (int t = 0; t < ntiles; ++t) {
-        key = max_key(key, __ldcg(tile_key + (static_cast<size_t>(b) * ntiles + t) * g + j));
+      for (int q = 0; q < ntiles; ++q) {
+        key = max_key(key, __ldcg(tile_key + (static_cast<size_t>(b) * ntiles + q) * g + jj));
       }
       out = static_cast<unsigned>(~static_cast<unsigned>(key));
     }
-    bp_ix[static_cast<size_t>(b) * g + j] = out;
+    bp_ix[static_cast<size_t>(b) * g + jj] = out;
   }
   if (tid == 0) counters[b] = 0u;
 }
 
 }  // namespace
-
-extern "C" int jabd_match_max_g() { return kMaxG; }
 
 extern "C" int jabd_match_tile() { return kTile; }
 
@@ -291,7 +322,7 @@ extern "C" int jabd_match_tile() { return kTile; }
 extern "C" int jabd_match_front(const void* truths, const void* valid, const void* priors,
                                 void* bt_ov, void* bt_ix, void* bp_ix, void* tile_key,
                                 void* counters, int batch, int g, int p, void* stream) {
-  if (batch <= 0 || batch > 65535 || g <= 0 || g > kMaxG || p <= 0) {
+  if (batch <= 0 || batch > 65535 || g <= 0 || p <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((p + kTile - 1) / kTile, batch);

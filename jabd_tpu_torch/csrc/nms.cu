@@ -9,34 +9,47 @@
 // j > i whose metric exceeds the threshold. Metric: IoU, or DIoU =
 // IoU - (d^2/c^2)^beta1, with the guards union > 0 and c > 0.
 //
-// Two kernels, launched back to back on one stream by jabd_nms_keep_sorted:
+// Bands. The mask's row blocks (64 rows each, nb = ceil(K / 64) of them)
+// are cut into bands [r0, r1) that jabd_nms_band runs in turn on one
+// stream, each band two kernels back to back; the wrapper plans the bands
+// from B and K alone (ops/nms_cuda.py::plan), so that each band's mask fits
+// a fixed scratch budget and nothing waits on the card for n_valid. Up to
+// K 12,288 at B 32 (and far beyond at smaller B) there is one band.
 //
 // 1. nms_mask_kernel: word (i, cb) has bit c set when j = 64 cb + c > i and
 //    metric(i, j) > thr. Tiles of 64 x 64 pairs, upper triangle only
-//    (column block cb >= row block rb), stored row-block-major: image b's
-//    word (64 rb + t, cb) lies at mask[((b * nb + rb) * nb + cb) * 64 + t],
-//    nb = ceil(K / 64). So a tile is 512 contiguous bytes, and a row block's
-//    words rb .. nb-1 are one contiguous span for the scan. The grid is as
-//    many 64-thread blocks as the card holds at once, split over the images;
-//    each block counts its image's n_valid once and walks the tiles of row
-//    blocks below ceil(n_valid / 64), so the cost follows n_valid^2, not
-//    K^2. In a tile the block stages the 64 column boxes in shared memory and
-//    thread t builds row 64 rb + t's word. Rows i >= n_valid are never
-//    computed (the plain version never lets them suppress) and invalid rows
-//    write 0; a column block with no valid box writes zeros without
-//    evaluating a metric. Columns are not cut at n_valid: valid need not be a
-//    prefix, and a valid j >= n_valid can still be suppressed.
+//    (column block cb >= row block rb), stored row-block-major per band:
+//    image b's word (64 rb + t, cb) of band [r0, r1) lies at
+//    mask[((b * (r1 - r0) + rb - r0) * (nb - r0) + cb - r0) * 64 + t]. So a
+//    tile is 512 contiguous bytes, and any run of a row block's columns is
+//    one contiguous span for the scan. The grid is as many 64-thread blocks
+//    as the card holds at once, split over the images; in the first band
+//    each block counts its image's n_valid (one block stores it for the
+//    later bands), and every block walks the band's tiles of row blocks
+//    below ceil(n_valid / 64), so the cost follows n_valid^2, not K^2. In a
+//    tile the block stages the 64 column boxes in shared memory and thread
+//    t builds row 64 rb + t's word. Rows i >= n_valid are never computed
+//    (the plain version never lets them suppress) and invalid rows write 0;
+//    a column block with no valid box writes zeros without evaluating a
+//    metric. Columns are not cut at n_valid: valid need not be a prefix, and
+//    a valid j >= n_valid can still be suppressed.
 // 2. nms_scan_kernel, one block of 256 threads per image. `removed` is a
-//    bitset over K in shared memory, starting as ~valid with the bits past
-//    K set. For each row block r < ceil(n_valid / 64): its words r .. nb-1
-//    arrive in shared memory by one TMA bulk copy, double-buffered on two
-//    mbarriers so that block r + 1 lands while block r is resolved; one
-//    warp resolves the 64 boxes with the diagonal words (box i < n_valid
-//    survives if its bit is clear and no earlier survivor of the block
-//    suppresses it), as the fixed point of "survivors = candidates minus
-//    what the survivors suppress", one lane per two rows; one warp per
-//    later word ORs the surviving rows' words into `removed`; two
-//    barriers. keep = ~removed, written as bytes.
+//    bitset over K, starting as ~valid with the bits past K set, in dynamic
+//    shared memory beside the copy buffers (nb words: 34 KB at K 272,000;
+//    the plan refuses K past 1,589,248, where it would leave no room for
+//    32-word chunks); the first band builds it, the later ones take it over
+//    from the one before through device memory. For each row block r of the
+//    band below ceil(n_valid / 64): its words r .. nb-1 arrive in column
+//    chunks of up to 192 words (96 KB) by TMA bulk copies, double-buffered
+//    on two mbarriers so that the next chunk lands while this one is used.
+//    On r's first chunk one warp resolves the 64 boxes with the diagonal
+//    words (box i < n_valid survives if its bit is clear and no earlier
+//    survivor of the block suppresses it), as the fixed point of
+//    "survivors = candidates minus what the survivors suppress", one lane
+//    per two rows; on every chunk one warp per later word ORs the surviving
+//    rows' words into `removed`; one or two barriers a chunk. The band that
+//    reaches ceil(n_valid / 64) writes keep = ~removed as bytes; a band
+//    wholly past it exits at once. With nb <= 192 a row block is one chunk.
 //
 // Bit-exactness: the metric uses the operation order of the plain version,
 // with the same operand roles (j is the `boxes` side, i the `bi` side:
@@ -47,25 +60,36 @@
 // inter == 0 is skipped without the division: its metric is exactly +0
 // (IoU) or <= 0 (DIoU), never > thr. Inputs are assumed finite
 // (fmaxf/fminf differ from torch.maximum only on NaN). The scan applies the
-// same greedy rule in the same order, so the keep mask is the plain
-// version's bit for bit.
+// same greedy rule in the same order, band after band, so the keep mask is
+// the plain version's bit for bit.
 //
-// Scratch: the mask holds B * nb * nb * 64 words of 8 bytes (25.6 MB at B 8,
-// K 5000), allocated by the wrapper. Words the scan never uses (rows
-// >= n_valid, the lower triangle) are left unwritten; the scan masks them.
+// Scratch, allocated by the wrapper in one piece: the largest band's mask,
+// B * (r1 - r0) * (nb - r0) * 64 words of 8 bytes (the whole upper square,
+// B * nb * nb * 64 words, when there is one band: 25.6 MB at B 8, K 5000),
+// plus `removed` (B * nb words) and n_valid (B ints). The plan keeps the
+// sum within SCRATCH_BYTES = 1 GiB whatever K; it raises where one row
+// block of the batch, B * nb * 512 bytes, does not fit beside the bits
+// (B * K above ~132 M), and past K 1,589,248, where `removed` no longer
+// fits the scan's shared memory. Words the scan never uses (rows >= n_valid, the lower triangle) are
+// left unwritten; the scan masks them.
 //
 // What bounds it on an H100 (B 8, K 5000 on the serving path's candidates,
 // chip_smoke.py's [phase3] split): the mask kernel is instruction issue over
 // ~100 M metric pairs, most warps taking the division path because some
-// lane's pair intersects. The scan is latency, on 8 of the 132 SMs: per row
-// block one bulk copy of up to 40 KB, a few rounds of two warp reductions,
-// two barriers. A chain of boxes each suppressing only the next can take 64
-// rounds in a block, slower than a 64-step serial pass. Tried and not
-// kept: 16-byte cp.async loads in place of the bulk copy (slower); a serial
-// 64-step chain in one thread (slower once the loads were bulk copies);
-// overlapping the OR with the chain by warp specialisation (no real gain).
+// lane's pair intersects; the banded path does the same per pair, ~n_valid^2
+// / 2 pairs of valid rows an image (2.3 G at n_valid 67,200). The scan is
+// latency, on B of the 132 SMs: per row block its bulk copies of up to
+// (nb - r) * 512 bytes, a few rounds of two warp reductions, a barrier a
+// chunk; with many columns it becomes the OR of (nb - r) words a row block,
+// eight warps wide. A chain of boxes each suppressing only the next can
+// take 64 rounds in a block, slower than a 64-step serial pass. Tried and
+// not kept: 16-byte cp.async loads in place of the bulk copy (slower); a
+// serial 64-step chain in one thread (slower once the loads were bulk
+// copies); overlapping the OR with the chain by warp specialisation (no real
+// gain).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -78,10 +102,12 @@ constexpr int kWord = 64;  // boxes per mask word = rows per row block
 constexpr int kMaskThreads = kWord;
 constexpr int kScanThreads = 256;
 constexpr int kScanWarps = kScanThreads / 32;
-// The scan double-buffers a row block's words in shared memory:
-// 2 x 64 x nb x 8 bytes = 192 KB at nb = 192.
-constexpr int kMaxWords = 192;
-constexpr int kMaxK = kMaxWords * kWord;
+// Dynamic shared memory the scan may take: the 227 KB a block can have on
+// sm_90, less 1 KB for its static variables. The wrapper sizes the copy
+// chunks (and places `removed`) within it.
+constexpr int kScanSmem = 227 * 1024 - 1024;
+// K such that no index 64 nb + c overflows an int.
+constexpr int kMaxK = INT_MAX - kWord;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDevices = 64;  // devices with cached launch settings
 
@@ -134,31 +160,46 @@ __device__ int block_count_valid(const uint8_t* __restrict__ v, int k, int* s_pa
   return total;
 }
 
-// Block x of image b walks the tiles of the upper triangle (row block rb <
-// ceil(n_valid / 64), column block cb >= rb, row-major) from tile x in steps
-// of the per-image grid.
+// Tiles (row block, column block >= it) of row blocks [r0, end), nb column
+// blocks.
+__host__ __device__ __forceinline__ long long band_tiles(int r0, int end, int nb) {
+  return end > r0 ? static_cast<long long>(end - r0) * (2LL * nb - r0 - end + 1) / 2 : 0;
+}
+
+// Block x of image b walks the band's tiles (row block rb in [r0, min(r1,
+// ceil(n_valid / 64))), column block cb >= rb, row-major) from tile x in
+// steps of the per-image grid.
 template <bool kDiou>
 __global__ void __launch_bounds__(kMaskThreads)
 nms_mask_kernel(const float4* __restrict__ boxes,  // [B, K] of (x1, y1, x2, y2)
                 const uint8_t* __restrict__ valid,  // [B, K] 0/1
-                u64* __restrict__ mask,              // [B, nb, nb, 64]
-                int k, int nb, int per_image, float thr, float beta1) {
+                u64* __restrict__ mask,              // band [B, r1 - r0, nb - r0, 64]
+                int* __restrict__ counts,            // [B] n_valid, set by the first band
+                int k, int nb, int r0, int r1, int per_image, float thr, float beta1) {
   __shared__ float4 s_box[kWord];
   __shared__ float s_area[kWord];
   __shared__ int s_part[kMaskThreads / 32];
 
   const int b = blockIdx.x / per_image;
+  const int x = blockIdx.x % per_image;
   const int t = threadIdx.x;
+  const int width = nb - r0;
   const uint8_t* v = valid + static_cast<size_t>(b) * k;
   const float4* bb = boxes + static_cast<size_t>(b) * k;
-  u64* m = mask + static_cast<size_t>(b) * nb * nb * kWord;
-  const int n_valid = block_count_valid(v, k, s_part);
-  const int steps = (n_valid + kWord - 1) / kWord;
-  const int tiles = steps * nb - steps * (steps - 1) / 2;
+  u64* m = mask + static_cast<size_t>(b) * (r1 - r0) * width * kWord;
+  int n_valid;
+  if (r0 == 0) {
+    n_valid = block_count_valid(v, k, s_part);
+    if (x == 0 && t == 0) counts[b] = n_valid;
+  } else {
+    n_valid = counts[b];
+  }
+  const int end = min(r1, (n_valid + kWord - 1) / kWord);
+  const int tiles = static_cast<int>(band_tiles(r0, end, nb));  // the launcher bounds it
   const bool skip_disjoint = thr >= 0.0f;
 
-  int rb = 0, row_start = 0;  // the first tile of row block rb
-  for (int q = blockIdx.x % per_image; q < tiles; q += per_image) {
+  int rb = r0, row_start = 0;  // the first tile of row block rb
+  for (int q = x; q < tiles; q += per_image) {
     while (q >= row_start + nb - rb) {
       row_start += nb - rb;
       ++rb;
@@ -166,7 +207,7 @@ nms_mask_kernel(const float4* __restrict__ boxes,  // [B, K] of (x1, y1, x2, y2)
     const int cb = rb + q - row_start;
     const int i = rb * kWord + t;
     const int j = cb * kWord + t;
-    u64* out = m + (static_cast<size_t>(rb) * nb + cb) * kWord + t;
+    u64* out = m + (static_cast<size_t>(rb - r0) * width + (cb - r0)) * kWord + t;
     // The barrier also keeps the previous tile's readers of s_box.
     if (!__syncthreads_or(j < k && v[j])) {  // no valid column: nothing to suppress
       if (i < n_valid) *out = 0ull;
@@ -234,13 +275,16 @@ __device__ __forceinline__ void wait_parity(u64* bar, unsigned parity) {
 }
 
 __global__ void __launch_bounds__(kScanThreads, 1)
-nms_scan_kernel(const u64* __restrict__ mask,       // [B, nb, nb, 64]
+nms_scan_kernel(const u64* __restrict__ mask,       // band [B, r1 - r0, nb - r0, 64]
                 const uint8_t* __restrict__ valid,  // [B, K] 0/1
                 uint8_t* __restrict__ keep,         // [B, K] 0/1
-                int k, int nb) {
-  extern __shared__ __align__(16) u64 s_rows[];  // [2][nb][64]: row blocks by parity
-  __shared__ u64 s_removed[kMaxWords];
-  __shared__ __align__(8) u64 s_bar[2];  // "row block landed", by parity
+                u64* g_removed,                     // [B, nb]: carried between bands
+                const int* __restrict__ counts,     // [B] n_valid, from the first band
+                int k, int nb, int r0, int r1, int chunk) {
+  // [2][chunk][64] words of the chunks in flight, by parity; then `removed`
+  // ([nb]).
+  extern __shared__ __align__(16) u64 s_dyn[];
+  __shared__ __align__(8) u64 s_bar[2];  // "chunk landed", by parity
   __shared__ u64 s_kept;
   __shared__ int s_part[kScanWarps];
 
@@ -249,112 +293,148 @@ nms_scan_kernel(const u64* __restrict__ mask,       // [B, nb, nb, 64]
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const uint8_t* v = valid + static_cast<size_t>(b) * k;
-  const size_t plane = static_cast<size_t>(nb) * kWord;  // words per row block
-  const u64* m = mask + static_cast<size_t>(b) * nb * plane;
+  const size_t plane = static_cast<size_t>(nb - r0) * kWord;  // words per row block of the band
+  const u64* m = mask + static_cast<size_t>(b) * (r1 - r0) * plane;
+  u64* removed = s_dyn + 2 * static_cast<size_t>(chunk) * kWord;
 
   if (tid == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&s_bar[0])) : "memory");
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&s_bar[1])) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // removed = ~valid, bits past K set; one warp per word.
-  int count = 0;
-  for (int w = warp; w < nb; w += kScanWarps) {
-    const int j = w * kWord + lane;
-    const unsigned lo = __ballot_sync(kFull, j < k && v[j]);
-    const unsigned hi = __ballot_sync(kFull, j + 32 < k && v[j + 32]);
-    if (lane == 0) {
-      s_removed[w] = ~((static_cast<u64>(hi) << 32) | lo);
-      count += __popc(lo) + __popc(hi);
-    }
-  }
-  if (lane == 0) s_part[warp] = count;
-  __syncthreads();
   int n_valid = 0;
-  for (int w = 0; w < kScanWarps; ++w) n_valid += s_part[w];
-  const int steps = (n_valid + kWord - 1) / kWord;
-
-  // Row block r's words r .. nb-1 (64 rows each) are contiguous in the
-  // mask: one bulk copy, by thread 0.
-  auto load = [&](int r) {
-    bulk_load(s_rows + (r & 1) * plane + r * kWord, m + r * plane + r * kWord,
-              static_cast<unsigned>((nb - r) * kWord * sizeof(u64)), &s_bar[r & 1]);
-  };
-  if (tid == 0 && steps > 0) load(0);
-  if (tid == 0 && steps > 1) load(1);
-
-  for (int r = 0; r < steps; ++r) {
-    wait_parity(&s_bar[r & 1], (r >> 1) & 1);
-    const u64* rows = s_rows + (r & 1) * plane;
-    if (warp == 0) {
-      // Resolve the block: lane l holds rows l and l + 32's diagonal words.
-      // The survivors are the unique K with K = A \ OR_{s in K} d[s] (A: the
-      // rows < n_valid not yet removed; d[s] has bits only above s, so K is
-      // fixed position by position). Iterating from K = A fixes at least
-      // one more position per round and stops at K itself: exact, in at
-      // most 65 rounds, a few on the data measured.
-      const int live = min(kWord, n_valid - r * kWord);  // rows i < n_valid
-      const u64 live_mask = live == kWord ? ~0ull : (1ull << live) - 1ull;
-      const u64 removed = s_removed[r];
-      const u64 alive = ~removed & live_mask;
-      const u64 d0 = rows[r * kWord + lane], d1 = rows[r * kWord + lane + 32];
-      u64 kept = alive, suppressed;
-      while (true) {
-        const u64 c = ((kept >> lane) & 1ull ? d0 : 0ull) | ((kept >> (lane + 32)) & 1ull ? d1 : 0ull);
-        const unsigned lo = __reduce_or_sync(kFull, static_cast<unsigned>(c));
-        const unsigned hi = __reduce_or_sync(kFull, static_cast<unsigned>(c >> 32));
-        suppressed = (static_cast<u64>(hi) << 32) | lo;
-        const u64 next = alive & ~suppressed;
-        if (next == kept) break;  // the same in every lane
-        kept = next;
-      }
+  if (r0 == 0) {
+    // removed = ~valid, bits past K set; one warp per word.
+    int count = 0;
+    for (int w = warp; w < nb; w += kScanWarps) {
+      const int j = w * kWord + lane;
+      const unsigned lo = __ballot_sync(kFull, j < k && v[j]);
+      const unsigned hi = __ballot_sync(kFull, j + 32 < k && v[j + 32]);
       if (lane == 0) {
-        s_removed[r] = removed | suppressed;
-        s_kept = kept;
+        removed[w] = ~((static_cast<u64>(hi) << 32) | lo);
+        count += __popc(lo) + __popc(hi);
       }
     }
+    if (lane == 0) s_part[warp] = count;
     __syncthreads();
-    const u64 kept = s_kept;
-    if (kept) {
-      for (int w = r + 1 + warp; w < nb; w += kScanWarps) {
-        const u64 a = (kept >> lane) & 1ull ? rows[w * kWord + lane] : 0ull;
-        const u64 c = (kept >> (lane + 32)) & 1ull ? rows[w * kWord + lane + 32] : 0ull;
-        const unsigned lo = __reduce_or_sync(kFull, static_cast<unsigned>(a | c));
-        const unsigned hi = __reduce_or_sync(kFull, static_cast<unsigned>((a | c) >> 32));
-        if (lane == 0) s_removed[w] |= (static_cast<u64>(hi) << 32) | lo;
+    for (int w = 0; w < kScanWarps; ++w) n_valid += s_part[w];
+  } else {
+    n_valid = counts[b];
+    if (r0 >= (n_valid + kWord - 1) / kWord) return;  // an earlier band finished this image
+    for (int w = tid; w < nb; w += kScanThreads) removed[w] = g_removed[static_cast<size_t>(b) * nb + w];
+    __syncthreads();
+  }
+  const int steps = (n_valid + kWord - 1) / kWord;
+  const int end = min(r1, steps);
+
+  // The band's chunks in order: row blocks r in [r0, end), each cut into
+  // columns [c, min(nb, c + chunk)) for c = r, r + chunk, ... Row block r's
+  // columns are contiguous in the mask, so a chunk is one bulk copy; thread
+  // 0 keeps two in flight (load_r, load_c: the next one to load).
+  int load_r = r0, load_c = r0;
+  auto load = [&](int slot) {
+    const int len = min(chunk, nb - load_c);
+    bulk_load(s_dyn + static_cast<size_t>(slot) * chunk * kWord,
+              m + (load_r - r0) * plane + static_cast<size_t>(load_c - r0) * kWord,
+              static_cast<unsigned>(len * kWord * sizeof(u64)), &s_bar[slot]);
+    load_c += chunk;
+    if (load_c >= nb) load_c = ++load_r;
+  };
+  if (tid == 0 && load_r < end) load(0);
+  if (tid == 0 && load_r < end) load(1);
+
+  int seq = 0;  // chunks used so far
+  for (int r = r0; r < end; ++r) {
+    for (int c = r; c < nb; c += chunk, ++seq) {
+      const int slot = seq & 1;
+      wait_parity(&s_bar[slot], (seq >> 1) & 1);
+      const u64* rows = s_dyn + static_cast<size_t>(slot) * chunk * kWord;  // [len][64]
+      const int len = min(chunk, nb - c);
+      if (c == r) {
+        if (warp == 0) {
+          // Resolve the block: lane l holds rows l and l + 32's diagonal
+          // words (the chunk's first word). The survivors are the unique K
+          // with K = A \ OR_{s in K} d[s] (A: the rows < n_valid not yet
+          // removed; d[s] has bits only above s, so K is fixed position by
+          // position). Iterating from K = A fixes at least one more position
+          // per round and stops at K itself: exact, in at most 65 rounds, a
+          // few on the data measured.
+          const int live = min(kWord, n_valid - r * kWord);  // rows i < n_valid
+          const u64 live_mask = live == kWord ? ~0ull : (1ull << live) - 1ull;
+          const u64 was = removed[r];
+          const u64 alive = ~was & live_mask;
+          const u64 d0 = rows[lane], d1 = rows[lane + 32];
+          u64 kept = alive, suppressed;
+          while (true) {
+            const u64 x = ((kept >> lane) & 1ull ? d0 : 0ull) | ((kept >> (lane + 32)) & 1ull ? d1 : 0ull);
+            const unsigned lo = __reduce_or_sync(kFull, static_cast<unsigned>(x));
+            const unsigned hi = __reduce_or_sync(kFull, static_cast<unsigned>(x >> 32));
+            suppressed = (static_cast<u64>(hi) << 32) | lo;
+            const u64 next = alive & ~suppressed;
+            if (next == kept) break;  // the same in every lane
+            kept = next;
+          }
+          if (lane == 0) {
+            removed[r] = was | suppressed;
+            s_kept = kept;
+          }
+        }
+        __syncthreads();
       }
+      const u64 kept = s_kept;
+      if (kept) {
+        for (int w = (c == r) + warp; w < len; w += kScanWarps) {
+          const u64 a = (kept >> lane) & 1ull ? rows[w * kWord + lane] : 0ull;
+          const u64 x = (kept >> (lane + 32)) & 1ull ? rows[w * kWord + lane + 32] : 0ull;
+          const unsigned lo = __reduce_or_sync(kFull, static_cast<unsigned>(a | x));
+          const unsigned hi = __reduce_or_sync(kFull, static_cast<unsigned>((a | x) >> 32));
+          if (lane == 0) removed[c + w] |= (static_cast<u64>(hi) << 32) | lo;
+        }
+      }
+      __syncthreads();  // this buffer is free again
+      if (tid == 0 && load_r < end) load(slot);
     }
-    __syncthreads();  // this buffer is free again
-    if (tid == 0 && r + 2 < steps) load(r + 2);
   }
 
+  if (end < steps) {  // the next band goes on from r1
+    for (int w = tid; w < nb; w += kScanThreads) g_removed[static_cast<size_t>(b) * nb + w] = removed[w];
+    return;
+  }
   uint8_t* out = keep + static_cast<size_t>(b) * k;
   for (int i = tid; i < k; i += kScanThreads) {
-    out[i] = !((s_removed[i / kWord] >> (i % kWord)) & 1ull);
+    out[i] = !((removed[i / kWord] >> (i % kWord)) & 1ull);
   }
 }
 
 }  // namespace
 
-extern "C" int jabd_nms_max_k() { return kMaxK; }
-
-// kind: 0 = IoU, 1 = DIoU. `mask` is scratch of batch * nb * 64 nb uint64
-// words, nb = ceil(k / 64), 16-byte aligned. Returns a cudaError_t (0 on
-// success).
-extern "C" int jabd_nms_keep_sorted(const void* boxes, const void* valid, void* mask, void* keep,
-                                    int batch, int k, float thr, int kind, float beta1,
-                                    void* stream) {
+// One band [r0, r1) of row blocks; the wrapper runs the bands in order on
+// one stream. kind: 0 = IoU, 1 = DIoU. `mask` (16-byte aligned) holds the
+// band's batch * (r1 - r0) * (nb - r0) * 64 uint64 words, nb = ceil(k / 64);
+// `removed` batch * nb words and `counts` batch ints, both kept from one
+// band to the next. `chunk`: mask words per bulk copy of the scan, which
+// takes 2 * chunk * 512 + nb * 8 bytes of shared memory (the copy buffers,
+// then `removed`). Returns a cudaError_t (0 on success).
+extern "C" int jabd_nms_band(const void* boxes, const void* valid, void* mask, void* removed,
+                             void* counts, void* keep, int batch, int k, int r0, int r1,
+                             int chunk, float thr, int kind, float beta1,
+                             void* stream) {
   if (batch <= 0 || k <= 0 || k > kMaxK || (kind != 0 && kind != 1) ||
       reinterpret_cast<uintptr_t>(mask) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int nb = (k + kWord - 1) / kWord;
+  const long long smem = 2LL * chunk * kWord * sizeof(u64) + nb * 8LL;
+  if (r0 < 0 || r1 <= r0 || r1 > nb || chunk <= 0 || chunk > nb || smem > kScanSmem ||
+      band_tiles(r0, r1, nb) > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto mask_kernel = kind == 1 ? nms_mask_kernel<true> : nms_mask_kernel<false>;
   // Kernel attributes and occupancy hold per device, so both caches are
   // kept per device (the current one); past kMaxDevices nothing is cached.
   static int cached_per_sm[kMaxDevices][2];  // resident mask blocks per SM, by kind; 0: not yet
-  static bool scan_ready[kMaxDevices];       // the scan's opt-in to kMaxSmem is made
+  static bool scan_ready[kMaxDevices];       // the scan's opt-in to kScanSmem is made
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   const bool cached = device >= 0 && device < kMaxDevices;
@@ -366,26 +446,25 @@ extern "C" int jabd_nms_keep_sorted(const void* boxes, const void* valid, void* 
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   // As many blocks as the card holds at once, split evenly over the images
-  // (and no more than an image has tiles).
-  const int per_image = std::max(1, std::min(nb * (nb + 1) / 2, sms * per_sm / batch));
-  if (static_cast<long long>(batch) * per_image > 0x7fffffffLL) {
+  // (and no more than the band has tiles).
+  const int per_image = static_cast<int>(
+      std::max(1LL, std::min(band_tiles(r0, r1, nb), static_cast<long long>(sms * per_sm / batch))));
+  if (static_cast<long long>(batch) * per_image > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   mask_kernel<<<batch * per_image, kMaskThreads, 0, s>>>(
       static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<u64*>(mask), k, nb, per_image, thr, beta1);
+      static_cast<u64*>(mask), static_cast<int*>(counts), k, nb, r0, r1, per_image, thr, beta1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr size_t kMaxSmem = 2 * kMaxWords * kWord * sizeof(u64);
   if (!cached || !scan_ready[device]) {
-    err = cudaFuncSetAttribute(nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kMaxSmem));
+    err = cudaFuncSetAttribute(nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kScanSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (cached) scan_ready[device] = true;
   }
-  const size_t smem = 2 * static_cast<size_t>(nb) * kWord * sizeof(u64);
-  nms_scan_kernel<<<batch, kScanThreads, smem, s>>>(
+  nms_scan_kernel<<<batch, kScanThreads, static_cast<size_t>(smem), s>>>(
       static_cast<const u64*>(mask), static_cast<const uint8_t*>(valid),
-      static_cast<uint8_t*>(keep), k, nb);
+      static_cast<uint8_t*>(keep), static_cast<u64*>(removed), static_cast<const int*>(counts),
+      k, nb, r0, r1, chunk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,9 +4,10 @@ on the CPU.
 
 Replaces `_match_front` (jabd_tpu/ops/matching_pallas.py), the training
 path's one TPU kernel, and the cross-tile argmax after it: one launch per
-loss call, grid (P / 1024 tiles, B). Tiles skip the GTs that do not meet
-their priors' bounding box, and the last block of each image combines the
-tiles' per-GT maxima, so the outputs need no further op.
+loss call, grid (P / 1024 tiles, B), for any G (each block walks the GT
+rows 256 at a time). Tiles skip the GTs that do not meet their priors'
+bounding box, and the last block of each image combines the tiles'
+per-GT maxima, so the outputs need no further op.
 `match_front.launches` counts the kernel's launches.
 """
 
@@ -41,9 +42,8 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.jabd_match_front.restype = ctypes.c_int
-    for name in ("jabd_match_max_g", "jabd_match_tile"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
+    lib.jabd_match_tile.argtypes = []
+    lib.jabd_match_tile.restype = ctypes.c_int
     return lib
 
 
@@ -54,9 +54,10 @@ def match_front(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(best_truth_overlap [B, P], best_truth_idx [B, P] int64,
     best_prior_idx [B, G] int64), equal to `M.match_front_plain` bit for
-    bit. On the card: one kernel launch, plus B * ceil(P / 1024) * G int64
-    words of scratch from the caching allocator (1 MB at B 34, G 128,
-    P 29,126)."""
+    bit. On the card: one kernel launch for any G, plus B * ceil(P / 1024)
+    * G int64 words of scratch from the caching allocator (1 MB at B 34,
+    G 128, P 29,126; 16 MB at G 2,048). It raises for B above 65,535 (the
+    grid's y) and never falls back to the plain version."""
     if truths.device.type == "cpu":
         return M.match_front_plain(truths, priors, valid)
     if truths.device.type != "cuda" or {priors.device, valid.device} != {truths.device}:
@@ -84,10 +85,9 @@ def match_front(
     lib = _library()
     bsz, g = valid.shape
     p = priors.shape[0]
-    if not (0 < bsz <= _MAX_B and 0 < g <= lib.jabd_match_max_g() and p > 0):
+    if not (0 < bsz <= _MAX_B and g > 0 and p > 0):
         raise ValueError(
-            f"B = {bsz}, G = {g}, P = {p}: the kernel takes 0 < B <= {_MAX_B}, "
-            f"0 < G <= {lib.jabd_match_max_g()}, P > 0"
+            f"B = {bsz}, G = {g}, P = {p}: the kernel takes 0 < B <= {_MAX_B}, G > 0, P > 0"
         )
     ntiles = -(-p // lib.jabd_match_tile())
     dev = truths.device

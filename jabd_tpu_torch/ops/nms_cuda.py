@@ -3,12 +3,14 @@ the card, the plain version (`ops/nms.py`) for tensors on the CPU.
 
 Replaces `nms_keep_sorted_pallas_batched` (jabd_tpu/ops/nms_pallas.py),
 the serving path's one TPU kernel, and through `nms` its twin `nms_pallas`
-(one image, unsorted scores). One call launches two kernels on the
-current stream: a suppression bitmask over 64x64 tiles of candidate pairs
-(the upper triangle, rows below n_valid), then a block-serial scan per
-image that applies the greedy rule 64 boxes at a time. Keep masks equal
-the plain version's. `nms_keep_sorted.launches` counts the calls that
-launched them, one per call.
+(one image, unsorted scores), for any K. Each band of 64-row blocks of the
+suppression bitmask (`plan`) launches two kernels on the current stream:
+the band's 64x64 tiles of candidate pairs (upper triangle, rows below
+n_valid), then a block-serial scan per image that applies the greedy rule
+64 boxes at a time and hands its removed set to the next band. Up to
+K 12,288 at B 32 there is one band. Keep masks equal the plain version's.
+`nms_keep_sorted.launches` counts the calls that launched them, one per
+call.
 
 The keep mask is the registered operator `torch.ops.jabd.nms_keep_sorted`
 (`torch.library.custom_op`): the CUDA launch for a tensor on the card, the
@@ -23,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,19 +35,82 @@ from jabd_tpu_torch.ops import nms as N
 _KIND_CODES = {"iou": 0, "diou": 1}
 _lock = threading.Lock()
 
+# Device memory one call may take for scratch, whatever K: the largest
+# band's mask plus the removed bitsets and the n_valid counts. `plan` reads
+# it at each call.
+SCRATCH_BYTES = 1 << 30
+WORD = 64  # boxes per mask word = rows per row block
+_TILE_BYTES = WORD * 8  # one 64x64 tile of the mask
+# The scan's dynamic shared memory (csrc/nms.cu, kScanSmem): two copy
+# buffers of `chunk` mask words each (512 bytes a word), then `removed`
+# (8 bytes a word). Chunks are CHUNK words, fewer where `removed` leaves
+# less room, and at least MIN_CHUNK, which bounds K.
+SCAN_SMEM = 227 * 1024 - 1024
+CHUNK = 192
+MIN_CHUNK = 32
+MAX_K = WORD * ((SCAN_SMEM - 2 * MIN_CHUNK * _TILE_BYTES) // 8)  # 1,589,248
+
+
+class Plan(NamedTuple):
+    """How one call of the kernels covers a [B, K] problem."""
+
+    bands: Tuple[Tuple[int, int], ...]  # row-block ranges [r0, r1), in order, covering [0, nb)
+    chunk: int  # mask words per bulk copy of the scan
+    mask_words: int  # int64 words of the largest band's mask
+    removed_words: int  # B * nb
+    count_words: int  # int64 words holding the B int32 n_valid counts
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 8 * (self.mask_words + self.removed_words + self.count_words)
+
+
+def plan(bsz: int, k: int) -> Plan:
+    """Bands and scan chunks for B images of K candidates, from B and K
+    alone (no wait on the card for n_valid): each band [r0, r1) takes as
+    many row blocks as fit SCRATCH_BYTES beside `removed` and the counts,
+    at B * (r1 - r0) * (nb - r0) * 512 bytes, so bands grow as the triangle
+    narrows. Raises where the kernels cannot take the problem: K above
+    MAX_K, or one row block of the batch over the budget."""
+    if k > MAX_K:
+        raise ValueError(
+            f"NMS of {k} boxes on the card: the scan keeps one removed bit a candidate in shared "
+            f"memory beside its copy buffers, K <= {MAX_K}; cut the candidates (pre_nms_topk)"
+        )
+    budget = SCRATCH_BYTES
+    nb = -(-k // WORD)
+    removed_words = bsz * nb
+    count_words = -(-bsz // 2)
+    room = budget - 8 * (removed_words + count_words)
+    row_bytes = bsz * nb * _TILE_BYTES  # one row block of the first band, all images
+    if room < row_bytes:
+        raise ValueError(
+            f"NMS of {k} boxes at batch {bsz} on the card: one 64-row block of the suppression "
+            f"mask takes {row_bytes} bytes beside {budget - room} of bitsets, over the "
+            f"{budget}-byte scratch budget; cut the candidates (pre_nms_topk) or the batch"
+        )
+    bands, r0, mask_words = [], 0, 0
+    while r0 < nb:
+        row_words = bsz * (nb - r0) * WORD
+        r1 = min(nb, r0 + room // (8 * row_words))
+        bands.append((r0, r1))
+        mask_words = max(mask_words, (r1 - r0) * row_words)
+        r0 = r1
+    chunk = min(CHUNK, (SCAN_SMEM - 8 * nb) // (2 * _TILE_BYTES), nb)
+    return Plan(tuple(bands), chunk, mask_words, removed_words, count_words)
+
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load("nms")
-    lib.jabd_nms_keep_sorted.argtypes = [
+    lib.jabd_nms_band.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
-    lib.jabd_nms_keep_sorted.restype = ctypes.c_int
-    lib.jabd_nms_max_k.argtypes = []
-    lib.jabd_nms_max_k.restype = ctypes.c_int
+    lib.jabd_nms_band.restype = ctypes.c_int
     return lib
 
 
@@ -74,23 +139,23 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, kind
     keep = torch.empty((bsz, k), dtype=torch.bool, device=boxes.device)
     if bsz == 0 or k == 0:
         return keep
+    pl = plan(bsz, k)
     lib = _library()
-    if k > lib.jabd_nms_max_k():
-        raise ValueError(
-            f"NMS of {k} boxes on the card: the kernel takes at most {lib.jabd_nms_max_k()}; "
-            "cut the candidates first (ops/nms.py::topk_candidates)"
-        )
-    nb = -(-k // 64)
-    mask = torch.empty((bsz, nb, nb, 64), dtype=torch.int64, device=boxes.device)
+    scratch = torch.empty(pl.scratch_bytes // 8, dtype=torch.int64, device=boxes.device)
+    mask = scratch.data_ptr()
+    removed = mask + 8 * pl.mask_words
+    counts = removed + 8 * pl.removed_words
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.jabd_nms_keep_sorted(
-            boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
-            bsz, k, float(iou_threshold), _KIND_CODES[kind], float(beta1),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"nms_keep_sorted kernel launch failed: cudaError {err}")
+        for r0, r1 in pl.bands:
+            err = lib.jabd_nms_band(
+                boxes.data_ptr(), valid.data_ptr(), mask, removed, counts, keep.data_ptr(),
+                bsz, k, r0, r1, pl.chunk, float(iou_threshold), _KIND_CODES[kind], float(beta1), stream,
+            )
+            if err != 0:
+                raise RuntimeError(
+                    f"nms_keep_sorted kernel launch failed at band {r0}..{r1}: cudaError {err}"
+                )
     with _lock:
         nms_keep_sorted.launches += 1
     return keep
@@ -118,9 +183,16 @@ def nms_keep_sorted(
     """Exact greedy NMS keep masks [B, K] bool (see ops/nms.py), through
     the operator `jabd::nms_keep_sorted`.
 
-    On the card K may be at most `jabd_nms_max_k()` (12,288). The call
-    allocates a scratch bitmask of B * nb * nb * 64 int64 words, nb =
-    ceil(K / 64), from the caching allocator: 25.6 MB at B 8, K 5000."""
+    On the card any K up to MAX_K: the call takes at most SCRATCH_BYTES
+    (1 GiB) of scratch from the caching allocator (`plan`): one band's
+    suppression mask, B * (r1 - r0) * (nb - r0) * 64 int64 words for row
+    blocks [r0, r1), nb = ceil(K / 64) (the whole B * nb * nb * 64 when one
+    band holds them: 25.6 MB at B 8, K 5000), plus B * nb words of removed
+    bits and B counts. It raises where one row block of the batch,
+    B * nb * 512 bytes, does not fit (B * K above ~132 M) and for K above
+    MAX_K (1,589,248, where the scan's removed bits fill its shared memory;
+    P is 272,000 for the largest preset at 1280x1280); it never falls back
+    to the plain loop."""
     N.check_kind(kind)
     return torch.ops.jabd.nms_keep_sorted(boxes, valid, float(iou_threshold), kind, float(beta1))
 
@@ -142,7 +214,6 @@ def nms(
     `nms_keep_sorted` (the kernel on the card, the plain loop on the CPU),
     then the compaction to ([max_out] indices into the input, valid).
 
-    On the card N may be at most `jabd_nms_max_k()` (12,288); a larger N
-    raises, where the JAX twin has no cap. It never falls back to the
-    plain loop."""
+    On the card any N up to `nms_keep_sorted`'s limits, as the JAX twin
+    takes any N; it never falls back to the plain loop."""
     return N.nms(boxes, scores, iou_threshold, max_out, valid, kind, beta1, keep_fn=nms_keep_sorted)
