@@ -51,6 +51,12 @@
 //    reaches ceil(n_valid / 64) writes keep = ~removed as bytes; a band
 //    wholly past it exits at once. With nb <= 192 a row block is one chunk.
 //
+// Work counters: with a non-null `work` (two uint64 slots the wrapper
+// passes while a profiler records) the mask kernel adds its metric
+// evaluations, 64 a word it builds, to work[0], and the band that writes
+// keep adds the pairs greedy NMS needs, n_valid - 1 - i a kept row
+// i < n_valid, to work[1]: an atomic add a warp at each kernel's end.
+//
 // Bit-exactness: the metric uses the operation order of the plain version,
 // with the same operand roles (j is the `boxes` side, i the `bi` side:
 // inter = max(xx2-xx1,0) * max(yy2-yy1,0); union = (area_j + area_i) - inter;
@@ -175,6 +181,7 @@ nms_mask_kernel(const float4* __restrict__ boxes,  // [B, K] of (x1, y1, x2, y2)
                 const uint8_t* __restrict__ valid,  // [B, K] 0/1
                 u64* __restrict__ mask,              // band [B, r1 - r0, nb - r0, 64]
                 int* __restrict__ counts,            // [B] n_valid, set by the first band
+                u64* work,                           // null, or [2] work counters
                 int k, int nb, int r0, int r1, int per_image, float thr, float beta1) {
   __shared__ float4 s_box[kWord];
   __shared__ float s_area[kWord];
@@ -197,6 +204,7 @@ nms_mask_kernel(const float4* __restrict__ boxes,  // [B, K] of (x1, y1, x2, y2)
   const int end = min(r1, (n_valid + kWord - 1) / kWord);
   const int tiles = static_cast<int>(band_tiles(r0, end, nb));  // the launcher bounds it
   const bool skip_disjoint = thr >= 0.0f;
+  unsigned words = 0;  // suppression words this thread built
 
   int rb = r0, row_start = 0;  // the first tile of row block rb
   for (int q = x; q < tiles; q += per_image) {
@@ -221,6 +229,7 @@ nms_mask_kernel(const float4* __restrict__ boxes,  // [B, K] of (x1, y1, x2, y2)
     if (i >= n_valid) continue;
     u64 word = 0ull;
     if (v[i]) {  // an invalid row is removed from the start and suppresses nothing
+      ++words;
       const float4 bi = bb[i];
       const float area_i = (bi.z - bi.x) * (bi.w - bi.y);
       // Every column, c and c + 32 side by side into 32-bit halves.
@@ -243,6 +252,10 @@ nms_mask_kernel(const float4* __restrict__ boxes,  // [B, K] of (x1, y1, x2, y2)
       if (k - cb * kWord < kWord) word &= (1ull << (k - cb * kWord)) - 1ull;  // only j < K
     }
     *out = word;
+  }
+  if (work != nullptr) {  // the loop's trip count is the block's: whole warps get here
+    const unsigned n = __reduce_add_sync(kFull, words);
+    if ((t & 31) == 0 && n) atomicAdd(work, static_cast<u64>(n) * kWord);
   }
 }
 
@@ -280,6 +293,7 @@ nms_scan_kernel(const u64* __restrict__ mask,       // band [B, r1 - r0, nb - r0
                 uint8_t* __restrict__ keep,         // [B, K] 0/1
                 u64* g_removed,                     // [B, nb]: carried between bands
                 const int* __restrict__ counts,     // [B] n_valid, from the first band
+                u64* work,                          // null, or [2] work counters
                 int k, int nb, int r0, int r1, int chunk) {
   // [2][chunk][64] words of the chunks in flight, by parity; then `removed`
   // ([nb]).
@@ -404,6 +418,14 @@ nms_scan_kernel(const u64* __restrict__ mask,       // band [B, r1 - r0, nb - r0
   for (int i = tid; i < k; i += kScanThreads) {
     out[i] = !((removed[i / kWord] >> (i % kWord)) & 1ull);
   }
+  if (work != nullptr) {
+    u64 useful = 0;
+    for (int i = tid; i < n_valid; i += kScanThreads) {
+      if (!((removed[i / kWord] >> (i % kWord)) & 1ull)) useful += n_valid - 1 - i;
+    }
+    for (int o = 16; o > 0; o >>= 1) useful += __shfl_down_sync(kFull, useful, o);
+    if (lane == 0 && useful) atomicAdd(work + 1, useful);
+  }
 }
 
 }  // namespace
@@ -414,11 +436,12 @@ nms_scan_kernel(const u64* __restrict__ mask,       // band [B, r1 - r0, nb - r0
 // `removed` batch * nb words and `counts` batch ints, both kept from one
 // band to the next. `chunk`: mask words per bulk copy of the scan, which
 // takes 2 * chunk * 512 + nb * 8 bytes of shared memory (the copy buffers,
-// then `removed`). Returns a cudaError_t (0 on success).
+// then `removed`). `work`: null, or two uint64 counters the kernels add
+// their work to (see the header). Returns a cudaError_t (0 on success).
 extern "C" int jabd_nms_band(const void* boxes, const void* valid, void* mask, void* removed,
                              void* counts, void* keep, int batch, int k, int r0, int r1,
                              int chunk, float thr, int kind, float beta1,
-                             void* stream) {
+                             void* stream, void* work) {
   if (batch <= 0 || k <= 0 || k > kMaxK || (kind != 0 && kind != 1) ||
       reinterpret_cast<uintptr_t>(mask) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -454,7 +477,8 @@ extern "C" int jabd_nms_band(const void* boxes, const void* valid, void* mask, v
   }
   mask_kernel<<<batch * per_image, kMaskThreads, 0, s>>>(
       static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<u64*>(mask), static_cast<int*>(counts), k, nb, r0, r1, per_image, thr, beta1);
+      static_cast<u64*>(mask), static_cast<int*>(counts), static_cast<u64*>(work), k, nb, r0, r1,
+      per_image, thr, beta1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!cached || !scan_ready[device]) {
@@ -465,6 +489,6 @@ extern "C" int jabd_nms_band(const void* boxes, const void* valid, void* mask, v
   nms_scan_kernel<<<batch, kScanThreads, static_cast<size_t>(smem), s>>>(
       static_cast<const u64*>(mask), static_cast<const uint8_t*>(valid),
       static_cast<uint8_t*>(keep), static_cast<u64*>(removed), static_cast<const int*>(counts),
-      k, nb, r0, r1, chunk);
+      static_cast<u64*>(work), k, nb, r0, r1, chunk);
   return static_cast<int>(cudaGetLastError());
 }

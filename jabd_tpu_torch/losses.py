@@ -31,6 +31,7 @@ from jabd_tpu_torch.ops import boxes as B
 from jabd_tpu_torch.ops import matching
 from jabd_tpu_torch.ops import matching_cuda
 from jabd_tpu_torch.parallel import mesh as M
+from jabd_tpu_torch.utils import tracing as T
 
 MATCHING_IMPLS = ("auto", "cuda", "plain")
 
@@ -85,7 +86,7 @@ def multibox_loss(
     loc_data, conf_data, landm_data = predictions
     num_priors = conf_data.shape[1]
 
-    with torch.no_grad():
+    with torch.no_grad(), T.span("jabd.train.match"):
         m = matching.match_batch(
             overlap_threshold,
             targets.boxes,

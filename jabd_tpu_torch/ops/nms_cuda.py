@@ -10,7 +10,13 @@ n_valid), then a block-serial scan per image that applies the greedy rule
 64 boxes at a time and hands its removed set to the next band. Up to
 K 12,288 at B 32 there is one band. Keep masks equal the plain version's.
 `nms_keep_sorted.launches` counts the calls that launched them, one per
-call.
+call. While a profiler records, the kernels also count their work into
+the recorder's counters (utils/tracing.py): `k1.pairs`, the metric
+evaluations of the mask kernel (64 a suppression word it builds), and
+`k1.useful_pairs`, those greedy NMS needs (n_valid - 1 - i a kept row
+i < n_valid), added by the scan; no kernel more, no wait on the card. The
+plain version on the CPU counts its own evaluations (B * K a step, one
+step a row below the largest n_valid) and the same useful pairs.
 
 The keep mask is the registered operator `torch.ops.jabd.nms_keep_sorted`
 (`torch.library.custom_op`): the CUDA launch for a tensor on the card, the
@@ -31,8 +37,10 @@ import torch
 
 from jabd_tpu_torch import _build
 from jabd_tpu_torch.ops import nms as N
+from jabd_tpu_torch.utils import tracing
 
 _KIND_CODES = {"iou": 0, "diou": 1}
+COUNTERS = ("k1.pairs", "k1.useful_pairs")  # the slots `jabd_nms_band` adds to
 _lock = threading.Lock()
 
 # Device memory one call may take for scratch, whatever K: the largest
@@ -108,7 +116,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.jabd_nms_band.restype = ctypes.c_int
     return lib
@@ -142,6 +150,8 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, kind
     pl = plan(bsz, k)
     lib = _library()
     scratch = torch.empty(pl.scratch_bytes // 8, dtype=torch.int64, device=boxes.device)
+    work = tracing.device_counts(COUNTERS, boxes.device)
+    work = None if work is None else work.data_ptr()
     mask = scratch.data_ptr()
     removed = mask + 8 * pl.mask_words
     counts = removed + 8 * pl.removed_words
@@ -151,6 +161,7 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, kind
             err = lib.jabd_nms_band(
                 boxes.data_ptr(), valid.data_ptr(), mask, removed, counts, keep.data_ptr(),
                 bsz, k, r0, r1, pl.chunk, float(iou_threshold), _KIND_CODES[kind], float(beta1), stream,
+                work,
             )
             if err != 0:
                 raise RuntimeError(
@@ -161,10 +172,23 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, kind
     return keep
 
 
+def _count_plain(valid: torch.Tensor, keep: torch.Tensor) -> None:
+    """The counters of the plain version's call: its metric evaluations
+    and the useful pairs, counted as the kernels count theirs."""
+    n_valid = valid.sum(1, keepdim=True)
+    rows = torch.arange(valid.shape[1])[None]
+    useful = torch.where(keep & (rows < n_valid), n_valid - 1 - rows, 0).sum()
+    tracing.count(COUNTERS[0], valid.numel() * int(n_valid.max()) if valid.numel() else 0)
+    tracing.count(COUNTERS[1], int(useful))
+
+
 @torch.library.custom_op("jabd::nms_keep_sorted", mutates_args=())
 def _keep_op(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, kind: str, beta1: float) -> torch.Tensor:
     if boxes.device.type == "cpu":
-        return N.nms_keep_sorted(boxes, valid, iou_threshold, kind, beta1)
+        keep = N.nms_keep_sorted(boxes, valid, iou_threshold, kind, beta1)
+        if tracing.enabled():
+            _count_plain(valid, keep)
+        return keep
     return _launch(boxes, valid, iou_threshold, kind, beta1)
 
 

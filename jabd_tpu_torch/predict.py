@@ -11,7 +11,9 @@ device as forward -> top-k of the scores -> decode -> greedy NMS (the
 CUDA kernel on the card) -> compaction to fixed [B, max_detections, 15]
 rows plus a valid mask; the host letterboxes before (or plans the
 letterbox that the device applies, in `detect_images`) and scales to
-pixels after.
+pixels after. Each entry point opens a `jabd.detect` span around the
+call and one span per stage inside it (utils/tracing.py: recorded only
+while a torch profiler records).
 
 Detection row layout: [x1, y1, x2, y2, score, 10 landmark coords].
 """
@@ -36,6 +38,7 @@ from jabd_tpu_torch.ops import nms_cuda
 from jabd_tpu_torch.ops.image import undo_letterbox_pixels
 from jabd_tpu_torch.parallel import mesh as M
 from jabd_tpu_torch.parallel import spatial as S
+from jabd_tpu_torch.utils import tracing as T
 
 
 def select_candidates(
@@ -81,12 +84,15 @@ def postprocess_outputs(
     """Head outputs -> (dets [B, max_out, 15], valid [B, max_out]) in
     normalized input coordinates. `keep_fn` computes the NMS keep masks:
     the kernel wrapper, or the plain version to check it."""
-    boxes, scores, valid, landms = select_candidates(
-        loc, cls, landm, anchors, pcfg, variances
-    )
-    keep = keep_fn(boxes, valid, pcfg.nms_iou, kind=pcfg.nms_kind)
-    rows = torch.cat([boxes, scores[..., None], landms], dim=-1)  # [B, k, 15]
-    return N.compact_keep(keep, rows, pcfg.max_detections)
+    with T.span("jabd.detect.select"):
+        boxes, scores, valid, landms = select_candidates(
+            loc, cls, landm, anchors, pcfg, variances
+        )
+    with T.span("jabd.detect.k1"):
+        keep = keep_fn(boxes, valid, pcfg.nms_iou, kind=pcfg.nms_kind)
+    with T.span("jabd.detect.compact"):
+        rows = torch.cat([boxes, scores[..., None], landms], dim=-1)  # [B, k, 15]
+        return N.compact_keep(keep, rows, pcfg.max_detections)
 
 
 def detect_batch(
@@ -97,7 +103,8 @@ def detect_batch(
     variances: Tuple[float, float] = (0.1, 0.2),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward + postprocess of one batch."""
-    loc, cls, landm = model(images)
+    with T.span("jabd.detect.forward", images.device):
+        loc, cls, landm = model(images)
     return postprocess_outputs(loc, cls, landm, anchors, pcfg, variances)
 
 
@@ -246,7 +253,8 @@ class Predictor:
         gathered."""
         hw = tuple(images.shape[1:3])
         with torch.inference_mode():
-            loc, cls, landm = self.model(S.shard_rows(images.permute(0, 3, 1, 2), self.mesh.devices))
+            with T.span("jabd.detect.forward", self.device):
+                loc, cls, landm = self.model(S.shard_rows(images.permute(0, 3, 1, 2), self.mesh.devices))
             return postprocess_outputs(loc, cls, landm, self._anchors_for(hw), self.pcfg, self.mcfg.anchors.variance)
 
     # -- entry points --------------------------------------------------------
@@ -255,8 +263,10 @@ class Predictor:
         """images: [B, H, W, 3] float32, mean-subtracted (numpy or tensor).
         Returns (dets [B, max_out, 15] normalized, valid [B, max_out]) as
         tensors on the device."""
-        x = torch.as_tensor(images, dtype=torch.float32).to(self.device)
-        return self._detect(x)
+        with T.span("jabd.detect"):
+            with T.span("jabd.detect.upload"):
+                x = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+            return self._detect(x)
 
     def detect_images(self, images) -> list:
         """Detections of uint8 [H_i, W_i, 3] images of any sizes in one
@@ -270,25 +280,33 @@ class Predictor:
         if not len(images):
             return []
         th, tw = self.pcfg.input_shape
-        bh = min(-(-max(i.shape[0] for i in images) // 128) * 128, 2048)
-        bw = min(-(-max(i.shape[1] for i in images) // 128) * 128, 2048)
-        padded, parts = zip(
-            *(I.plan_letterbox(im, (th, tw), (bh, bw), self.pcfg.letterbox) for im in images)
-        )
-        self._check_batch(len(images))
-        inputs = tuple(torch.from_numpy(np.stack(p)) for p in (padded, *zip(*parts)))
         # Each replica of a data mesh letterboxes its own rows on its device;
         # a spatial mesh letterboxes on the first device, then shards.
         data_mesh = self.mesh is not None and not self._spatial
-        pieces = M.shard_batch(inputs, self.mesh) if data_mesh else [tuple(t.to(self.device) for t in inputs)]
-        with torch.inference_mode():
-            frames = [I.letterbox_batch_device(*piece) for piece in pieces]
-        dets_b, valid_b = self._detect_parts(frames) if data_mesh else self._detect(frames[0])
-        dets_b, valid_b = dets_b.cpu().numpy(), valid_b.cpu().numpy()
-        return [
-            undo_letterbox_pixels(dets_b[i][valid_b[i]], (th, tw), im.shape[:2], self.pcfg.letterbox)
-            for i, im in enumerate(images)
-        ]
+        with T.span("jabd.detect"):
+            with T.span("jabd.detect.prepare"):
+                bh = min(-(-max(i.shape[0] for i in images) // 128) * 128, 2048)
+                bw = min(-(-max(i.shape[1] for i in images) // 128) * 128, 2048)
+                padded, parts = zip(
+                    *(I.plan_letterbox(im, (th, tw), (bh, bw), self.pcfg.letterbox) for im in images)
+                )
+                self._check_batch(len(images))
+                inputs = tuple(torch.from_numpy(np.stack(p)) for p in (padded, *zip(*parts)))
+            with T.span("jabd.detect.upload"):
+                pieces = M.shard_batch(inputs, self.mesh) if data_mesh else [tuple(t.to(self.device) for t in inputs)]
+            frames = []
+            with torch.inference_mode():
+                for piece in pieces:
+                    with T.span("jabd.detect.letterbox"):
+                        frames.append(I.letterbox_batch_device(*piece))
+            dets_b, valid_b = self._detect_parts(frames) if data_mesh else self._detect(frames[0])
+            with T.span("jabd.detect.download"):
+                dets_b, valid_b = dets_b.cpu().numpy(), valid_b.cpu().numpy()
+            with T.span("jabd.detect.finish"):
+                return [
+                    undo_letterbox_pixels(dets_b[i][valid_b[i]], (th, tw), im.shape[:2], self.pcfg.letterbox)
+                    for i, im in enumerate(images)
+                ]
 
     def detect_image(self, image: np.ndarray) -> np.ndarray:
         """One [H, W, 3] uint8/float image -> [N, 15] pixel-space dets."""

@@ -16,7 +16,8 @@ kernel K1, inside the Predictor or inside the artifact's graph.
                    score, 10 landmark coords], ...], "count": N}
     POST /identify image bytes -> {"faces": [{"box", "score", "landmarks",
                    "name", "cosine", "embedding"}, ...], "count": N}
-    GET  /healthz  {"requests": N, "batches": M, "occupancy": ..., ...}
+    GET  /healthz  {"requests": N, "batches": M, "occupancy": ...,
+                   "wait_mean_ms": ..., "wait_max_ms": ..., ...}
 
 The body is decoded as `cv2.imdecode` decodes it (`eval/run_wider.py::
 decode_bgr`: PIL, EXIF orientation applied, BGR); an undecodable body gets
@@ -41,6 +42,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from jabd_tpu_torch.ops import image as I
+from jabd_tpu_torch.utils import tracing as T
 
 
 class BatchingDetector:
@@ -49,7 +51,12 @@ class BatchingDetector:
     `backend` is a Predictor or an `aot.AotDetector`; an artifact's batch
     size must equal `batch_size`, and its input shape and letterbox are
     the manifest's. `max_wait_ms` bounds how long the first request of a
-    batch waits for batch-mates."""
+    batch waits for batch-mates.
+
+    `stats()` reports the queue wait, from `detect()` enqueueing a request
+    to its batch starting: mean and max in ms over every request batched
+    so far. Each batch runs under a `jabd.serve.batch` span while a torch
+    profiler records (utils/tracing.py)."""
 
     def __init__(
         self,
@@ -85,6 +92,9 @@ class BatchingDetector:
         self._stats_lock = threading.Lock()
         self.n_requests = 0
         self.n_batches = 0
+        self.n_waits = 0
+        self.wait_total_s = 0.0
+        self.wait_max_s = 0.0
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
@@ -95,7 +105,7 @@ class BatchingDetector:
         """Blocking single-image detect ([H, W, 3] uint8) -> [N, 15]
         pixel-space dets. Thread-safe; concurrent callers share batches."""
         fut: Future = Future()
-        self._q.put((image, fut))
+        self._q.put((image, fut, time.monotonic()))
         return fut.result(timeout=timeout)
 
     def close(self):
@@ -111,11 +121,13 @@ class BatchingDetector:
                 "batch_size": self.batch_size,
                 "occupancy": self.n_requests / (self.n_batches or 1),
                 "input_shape": list(self.input_shape),
+                "wait_mean_ms": 1000.0 * self.wait_total_s / (self.n_waits or 1),
+                "wait_max_ms": 1000.0 * self.wait_max_s,
             }
 
     # -- collector -----------------------------------------------------------
 
-    def _collect(self) -> List[Tuple[np.ndarray, Future]]:
+    def _collect(self) -> List[Tuple[np.ndarray, Future, float]]:
         """Block for the first request, then gather batch-mates until the
         batch fills or max_wait elapses."""
         first = self._q.get()
@@ -142,22 +154,29 @@ class BatchingDetector:
             items = self._collect()
             if not items:
                 continue
+            start = time.monotonic()
+            waits = [start - t for _, _, t in items]
+            with self._stats_lock:
+                self.n_waits += len(waits)
+                self.wait_total_s += sum(waits)
+                self.wait_max_s = max(self.wait_max_s, *waits)
             try:
-                batch = np.zeros((self.batch_size, th, tw, 3), np.float32)
-                for i, (img, _) in enumerate(items):
-                    batch[i] = I.serving_front_end(img, (tw, th), self.letterbox)
-                dets_b, valid_b = self.backend.detect_preprocessed(batch)
-                dets_b = dets_b.cpu().numpy()
-                valid_b = valid_b.cpu().numpy()
-                for i, (img, fut) in enumerate(items):
-                    fut.set_result(
-                        I.undo_letterbox_pixels(
-                            dets_b[i][valid_b[i]], (th, tw), img.shape[:2],
-                            self.letterbox,
+                with T.span("jabd.serve.batch"):
+                    batch = np.zeros((self.batch_size, th, tw, 3), np.float32)
+                    for i, (img, _, _) in enumerate(items):
+                        batch[i] = I.serving_front_end(img, (tw, th), self.letterbox)
+                    dets_b, valid_b = self.backend.detect_preprocessed(batch)
+                    dets_b = dets_b.cpu().numpy()
+                    valid_b = valid_b.cpu().numpy()
+                    for i, (img, fut, _) in enumerate(items):
+                        fut.set_result(
+                            I.undo_letterbox_pixels(
+                                dets_b[i][valid_b[i]], (th, tw), img.shape[:2],
+                                self.letterbox,
+                            )
                         )
-                    )
             except Exception as e:  # the worker outlives one bad batch
-                for _, fut in items:
+                for _, fut, _ in items:
                     if not fut.done():
                         fut.set_exception(e)
             with self._stats_lock:

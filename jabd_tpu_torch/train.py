@@ -50,6 +50,7 @@ from jabd_tpu_torch.models.retinaface import dropout_seed
 from jabd_tpu_torch.ops import anchors as A
 from jabd_tpu_torch.parallel import fsdp as FS
 from jabd_tpu_torch.parallel import mesh as M
+from jabd_tpu_torch.utils import tracing as T
 
 
 def check_supported(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConfig) -> None:
@@ -252,6 +253,9 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
     batch's. Rank r of n draws its dropout masks from stream (step * mb +
     i) * n + r. A mesh of size 1 is the plain step.
 
+    Each step opens a `jabd.train.step` span with one span per phase inside
+    it (utils/tracing.py: recorded only while a torch profiler records).
+
     Raises ValueError for a model with an IoU head."""
     check_supported(model_cfg, train_cfg)
     bf16 = model_cfg.compute_dtype == "bfloat16"
@@ -259,58 +263,65 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
     mesh = mesh if M.is_sharded(mesh) else None
 
     def chunk_backward(model, images, targets, anchors, stream: int):
-        x = images.permute(0, 3, 1, 2)
-        generator = None
-        if model_cfg.tap_dropout > 0.0:
-            if mesh is not None:
-                stream = stream * mesh.size + mesh.rank
-            generator = torch.Generator(x.device).manual_seed(dropout_seed(train_cfg.seed, stream))
-        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-            out = model(x, remat=train_cfg.remat, generator=generator)
-        saved = _batchnorm_stats(model) if train_cfg.remat else None
-        parts = losses.multibox_loss(
-            out,
-            anchors,
-            targets,
-            overlap_threshold=train_cfg.overlap_threshold,
-            neg_pos_ratio=train_cfg.neg_pos_ratio,
-            variances=model_cfg.anchors.variance,
-            box_loss=model_cfg.box_loss,
-            matching_impl=train_cfg.matching_impl,
-            matching_mesh=mesh,
-        )
-        loss = losses.total_loss(parts, train_cfg.loc_weight)
-        loss.backward()  # adds into .grad
-        if saved is not None:
-            _restore_batchnorm_stats(saved)
+        dev = images.device
+        with T.span("jabd.train.forward", dev):
+            x = images.permute(0, 3, 1, 2)
+            generator = None
+            if model_cfg.tap_dropout > 0.0:
+                if mesh is not None:
+                    stream = stream * mesh.size + mesh.rank
+                generator = torch.Generator(x.device).manual_seed(dropout_seed(train_cfg.seed, stream))
+            with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+                out = model(x, remat=train_cfg.remat, generator=generator)
+            saved = _batchnorm_stats(model) if train_cfg.remat else None
+        with T.span("jabd.train.loss", dev):
+            parts = losses.multibox_loss(
+                out,
+                anchors,
+                targets,
+                overlap_threshold=train_cfg.overlap_threshold,
+                neg_pos_ratio=train_cfg.neg_pos_ratio,
+                variances=model_cfg.anchors.variance,
+                box_loss=model_cfg.box_loss,
+                matching_impl=train_cfg.matching_impl,
+                matching_mesh=mesh,
+            )
+            loss = losses.total_loss(parts, train_cfg.loc_weight)
+        with T.span("jabd.train.backward", dev):
+            loss.backward()  # adds into .grad
+            if saved is not None:
+                _restore_batchnorm_stats(saved)
         return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
 
     def run(state: TrainState, make_images, batch: int, targets: losses.Targets, anchors: torch.Tensor):
         if batch % mb:
             raise ValueError(f"batch {batch} not divisible by microbatches={mb}")
-        model = state.model
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        n = batch // mb
-        chunks = []
-        for i in range(mb):
-            part = slice(i * n, (i + 1) * n)
-            chunk_targets = losses.Targets(*(t[part] for t in targets))
-            # A dropout stream per chunk: step * mb + i, as in JAX.
-            chunks.append(chunk_backward(model, make_images(part), chunk_targets, anchors, state.step * mb + i))
-        if mesh is not None:
-            M.all_reduce_grads(FS.replicated_parameters(model), mesh)
-            keys = list(chunks[0])
-            summed = M.all_reduce(torch.stack([torch.stack([c[k] for k in keys]) for c in chunks]), mesh)
-            chunks = [dict(zip(keys, row)) for row in summed]
-        if mb == 1:
-            metrics = chunks[0]
-        else:
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(mb)
-            metrics = {k: torch.stack([c[k] for c in chunks]).mean() for k in chunks[0]}
-        state.apply_gradients()
+        with T.span("jabd.train.step"):
+            model = state.model
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            n = batch // mb
+            chunks = []
+            for i in range(mb):
+                part = slice(i * n, (i + 1) * n)
+                chunk_targets = losses.Targets(*(t[part] for t in targets))
+                # A dropout stream per chunk: step * mb + i, as in JAX.
+                chunks.append(chunk_backward(model, make_images(part), chunk_targets, anchors, state.step * mb + i))
+            if mesh is not None:
+                with T.span("jabd.train.allreduce"):
+                    M.all_reduce_grads(FS.replicated_parameters(model), mesh)
+                    keys = list(chunks[0])
+                    summed = M.all_reduce(torch.stack([torch.stack([c[k] for k in keys]) for c in chunks]), mesh)
+                    chunks = [dict(zip(keys, row)) for row in summed]
+            with T.span("jabd.train.optimizer", anchors.device):
+                if mb == 1:
+                    metrics = chunks[0]
+                else:
+                    for p in model.parameters():
+                        if p.grad is not None:
+                            p.grad.div_(mb)
+                    metrics = {k: torch.stack([c[k] for c in chunks]).mean() for k in chunks[0]}
+                state.apply_gradients()
         return state, metrics
 
     if not train_cfg.device_augment:
@@ -324,7 +335,7 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
 
     def aug_step(state: TrainState, images_u8: torch.Tensor, plan, targets: losses.Targets, anchors: torch.Tensor):
         def make_images(part):
-            with torch.no_grad():
+            with torch.no_grad(), T.span("jabd.train.augment"):
                 return device_augment(images_u8[part], type(plan)(*(t[part] for t in plan)))
 
         return run(state, make_images, images_u8.shape[0], targets, anchors)

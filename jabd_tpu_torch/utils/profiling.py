@@ -8,8 +8,9 @@ matrix products only (2 per multiply-add). XLA also counts elementwise
 work and lowers the bicubic resize to matmuls, so the two packages' GFLOPs
 for one model differ; parameter counts are equal. Times come from CUDA
 events on the card (`benchmark`) and traces from `torch.profiler`
-(`trace`). The JAX module's `per_layer_table_subprocess` and
-`chained_benchmark` work around its remote TPU and have no counterpart.
+(`trace`, with the spans of utils/tracing.py). The JAX module's
+`per_layer_table_subprocess` and `chained_benchmark` work around its
+remote TPU and have no counterpart.
 """
 
 from __future__ import annotations
@@ -100,7 +101,10 @@ def benchmark(fn: Callable, *args, iters: int = 50, warmup: int = 5) -> Dict[str
 def trace(log_dir: str):
     """torch.profiler over the block (the card too, where there is one);
     writes `<log_dir>/trace.json` (chrome://tracing, Perfetto) and yields
-    the profiler, whose `key_averages()` sums time by kernel."""
+    the profiler, whose `key_averages()` sums time by kernel. The trace
+    holds the port's layer spans (`jabd.detect.*`, `jabd.train.*`,
+    `jabd.serve.batch`) as host ranges over the kernels they launch;
+    `utils/tracing.py::read()` gives their sums and the K1 counters."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)

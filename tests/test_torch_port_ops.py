@@ -89,6 +89,7 @@ PORT_MODULES = [
     "jabd_tpu_torch.utils.np_ckpt",
     "jabd_tpu_torch.utils.profiling",
     "jabd_tpu_torch.utils.torch_convert",
+    "jabd_tpu_torch.utils.tracing",
 ]
 
 

@@ -3,8 +3,8 @@
 
 - concurrent POST /detect answers equal `detect_image` on the decoded
   frame, and the JAX package's daemon over the same variables;
-- /healthz counts, 404s, the 503 on /identify without an embedder, 400 on
-  an undecodable body;
+- /healthz counts and queue waits, 404s, the 503 on /identify without an
+  embedder, 400 on an undecodable body;
 - an artifact backend: its batch size is enforced, its shape is used;
 - `decode_bgr` of bytes equals its path form and `cv2.imdecode`.
 """
@@ -98,6 +98,9 @@ def test_concurrent_answers_equal_detect_image(setup, rng):
             answers = list(pool.map(lambda b: srv.call("/detect", b), bodies))
         code, stats = srv.call("/healthz")
     assert code == 200 and stats["requests"] == 8 and 2 <= stats["batches"] <= 8
+    # Queue wait, enqueue to batch start: the first of a batch waits up to
+    # max_wait_ms for mates, later ones also for the batches before theirs.
+    assert 0.0 < stats["wait_mean_ms"] <= stats["wait_max_ms"] < 60_000.0
     for (code, ans), frame in zip(answers, frames):
         want = setup["pred"].detect_image(frame)
         got = np.asarray(ans["faces"], np.float64).reshape(-1, 15)
@@ -137,7 +140,8 @@ def test_http_errors(setup):
         assert code == 503 and "no embedder" in body["error"]
         code, body = srv.call("/detect", b"not an image")
         assert code == 400 and body == {"error": "undecodable image"}
-        assert srv.call("/healthz")[1]["requests"] == 0
+        health = srv.call("/healthz")[1]
+        assert health["requests"] == 0 and health["wait_mean_ms"] == health["wait_max_ms"] == 0.0
 
 
 def test_artifact_backend(setup, rng, tmp_path):
