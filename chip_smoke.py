@@ -1732,8 +1732,8 @@ def _wider_paths(card, dev, preset, state, tmp):
     imgs = list(first_chunk.values())[:8]
     bh = -(-max(im.shape[0] for im in imgs) // 128) * 128
     bw = -(-max(im.shape[1] for im in imgs) // 128) * 128
-    padded, parts = zip(*(I.plan_letterbox(im, (th, tw), (bh, bw)) for im in imgs))
-    src = torch.from_numpy(np.stack(padded)).to(dev)
+    sources, parts = zip(*(I.plan_letterbox(im, (th, tw), (bh, bw)) for im in imgs))
+    src = I.upload_to_bucket(sources, (bh, bw), dev)
     plan = [torch.from_numpy(np.stack(p)).to(dev) for p in zip(*parts)]
     host = torch.from_numpy(np.stack([I.serving_front_end(im, (tw, th)) for im in imgs]))
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):

@@ -9,8 +9,8 @@ augmentation calls, in numpy; and the training augmentation's HSV jitter
 in cv2's float HSV space (`hsv_jitter`), the one definition that the host
 (`data/wider.augment_sample`) and the card (`data/device_augment`) both
 run; the batched device letterbox (`plan_letterbox`,
-`letterbox_batch_device`), the image pyramid (`plan_pyramid`,
-`pyramid_batch_device`) and the pyramid's host pre-scale
+`upload_to_bucket`, `letterbox_batch_device`), the image pyramid
+(`plan_pyramid`, `pyramid_batch_device`) and the pyramid's host pre-scale
 (`cubic_resize_np`, cv2's float32 INTER_CUBIC). The JAX package letterboxes with
 `cv2.resize`; cv2 is not a dependency of the port, so the resize here is
 torch bilinear with half-pixel centres and clamped edge taps, which is
@@ -36,6 +36,7 @@ from jabd_tpu_torch.ops.resize import _pil_bicubic_filter
 
 MEANS = (104.0, 117.0, 123.0)
 LETTERBOX_FILL = 84.0  # the reference letterbox's grey (not 128)
+LETTERBOX_TAPS_K = 2  # cv2 INTER_LINEAR weighs two source pixels a row
 
 
 def preprocess_input_np(image: np.ndarray) -> np.ndarray:
@@ -200,14 +201,18 @@ def plan_letterbox(
     bucket_hw: Tuple[int, int],
     letterbox: bool = True,
 ):
-    """One image's letterbox as per-sample resample matrices (cv2
-    INTER_LINEAR semantics, centred paste, fill 84) against a uint8
-    source bucket, so one batched call letterboxes images of any sizes.
-    A source larger than the bucket is first shrunk to fit (`resize_np`,
-    within 1 grey level of the JAX package's cv2 INTER_LINEAR).
+    """One image's letterbox as a taps-form plan (cv2 INTER_LINEAR
+    semantics, centred paste, fill 84) against a uint8 source bucket, so
+    one batched call letterboxes images of any sizes: per axis and canvas
+    row the first source tap, its two weights and whether the row was
+    pasted (`resize.paste_resize_taps`). The card expands them into the
+    dense matrices of `resize.paste_resize_matrix`, bit for bit. A source
+    larger than the bucket is first shrunk to fit (`resize_np`, within 1
+    grey level of the JAX package's cv2 INTER_LINEAR).
 
-    Returns (padded_u8 [bh, bw, 3], (mv [th, bh], mh [tw, bw], inside_v
-    [th], inside_h [tw]))."""
+    Returns (source_u8 [ih', iw', 3]: the image, or its shrunk copy, as
+    contiguous uint8; (xv [th], wv [th, 2], inside_v [th], xh [tw], wh
+    [tw, 2], inside_h [tw])): the tap indices int32, the rest float32."""
     ih, iw = image_u8.shape[:2]
     th, tw = target_hw
     bh, bw = bucket_hw
@@ -219,23 +224,41 @@ def plan_letterbox(
         _, nh, nw, top, left = letterbox_params((ih, iw), (th, tw))
     else:  # a plain, aspect-breaking resize to the target
         nh, nw, top, left = th, tw, 0, 0
-    padded = pad_to_bucket(image_u8, bucket_hw)
-    mv, inside_v = R.paste_resize_matrix(ih, nh, top, th, bh, taps=R.cv2_bilinear_taps)
-    mh, inside_h = R.paste_resize_matrix(iw, nw, left, tw, bw, taps=R.cv2_bilinear_taps)
-    return padded, (mv, mh, inside_v, inside_h)
+    xv, wv, inside_v = R.paste_resize_taps(ih, nh, top, th, taps=R.cv2_bilinear_taps, k_max=LETTERBOX_TAPS_K)
+    xh, wh, inside_h = R.paste_resize_taps(iw, nw, left, tw, taps=R.cv2_bilinear_taps, k_max=LETTERBOX_TAPS_K)
+    return np.ascontiguousarray(image_u8, dtype=np.uint8), (xv, wv, inside_v, xh, wh, inside_h)
+
+
+def upload_to_bucket(images_u8, bucket_hw: Tuple[int, int], device) -> torch.Tensor:
+    """Contiguous uint8 [H_i, W_i, 3] sources -> a [B, bh, bw, 3] uint8
+    source bucket made on `device`, each image copied from its own bytes
+    into the top-left corner of its row. The rest is left unset: the
+    plans weigh it by zero, so none of it reaches a frame."""
+    bh, bw = bucket_hw
+    bucket = torch.empty((len(images_u8), bh, bw, 3), dtype=torch.uint8, device=device)
+    for row, image in zip(bucket, images_u8):
+        row[: image.shape[0], : image.shape[1]].copy_(torch.from_numpy(image))
+    return bucket
 
 
 def letterbox_batch_device(
     images_u8: torch.Tensor,  # [B, bh, bw, 3] uint8 (bucketed sources)
-    mv: torch.Tensor,  # [B, th, bh]
-    mh: torch.Tensor,  # [B, tw, bw]
+    xv: torch.Tensor,  # [B, th] integer
+    wv: torch.Tensor,  # [B, th, K]
     inside_v: torch.Tensor,  # [B, th]
+    xh: torch.Tensor,  # [B, tw] integer
+    wh: torch.Tensor,  # [B, tw, K]
     inside_h: torch.Tensor,  # [B, tw]
     resample_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """Bucketed uint8 sources + plans -> mean-subtracted float32 [B, th,
-    tw, 3] frames: what letterbox_np + preprocess_input_np give, up to
-    cv2's uint8 fixed-point rounding (and bfloat16's, by default)."""
+    """Bucketed uint8 sources + taps-form plans -> mean-subtracted float32
+    [B, th, tw, 3] frames: what letterbox_np + preprocess_input_np give, up
+    to cv2's uint8 fixed-point rounding (and bfloat16's, by default). The
+    plans are expanded on the device into dense matrices in
+    `resample_dtype`."""
+    bh, bw = images_u8.shape[1], images_u8.shape[2]
+    mv = R.expand_taps(xv, wv, bh, resample_dtype)
+    mh = R.expand_taps(xh, wh, bw, resample_dtype)
     y = R.resample_canvas(
         images_u8, mv, mh, inside_v, inside_h, fill=LETTERBOX_FILL, resample_dtype=resample_dtype
     )

@@ -270,13 +270,13 @@ class Predictor:
 
     def detect_images(self, images) -> list:
         """Detections of uint8 [H_i, W_i, 3] images of any sizes in one
-        batch: each image's letterbox is planned on the host as resample
-        matrices against one source bucket (`ops/image.py::
-        plan_letterbox`; ceil-128 of the largest side, capped at 2048,
-        larger sources shrunk first) and applied on the device in one
-        batched call (bfloat16 matmuls), then `_detect`. Frames differ
-        from the host letterbox by rounding only. Returns a list of
-        [N_i, 15] pixel-space dets."""
+        batch: each image's letterbox is planned on the host as per-row taps
+        against one source bucket (`ops/image.py::plan_letterbox`; ceil-128
+        of the largest side, capped at 2048, larger sources shrunk first),
+        the images' own bytes are copied into a bucket made on the device,
+        and the letterbox runs there in one batched call (bfloat16
+        matmuls), then `_detect`. Frames differ from the host letterbox by
+        rounding only. Returns a list of [N_i, 15] pixel-space dets."""
         if not len(images):
             return []
         th, tw = self.pcfg.input_shape
@@ -287,13 +287,22 @@ class Predictor:
             with T.span("jabd.detect.prepare"):
                 bh = min(-(-max(i.shape[0] for i in images) // 128) * 128, 2048)
                 bw = min(-(-max(i.shape[1] for i in images) // 128) * 128, 2048)
-                padded, parts = zip(
+                sources, plans = zip(
                     *(I.plan_letterbox(im, (th, tw), (bh, bw), self.pcfg.letterbox) for im in images)
                 )
                 self._check_batch(len(images))
-                inputs = tuple(torch.from_numpy(np.stack(p)) for p in (padded, *zip(*parts)))
+                plans = [np.stack(p) for p in zip(*plans)]
+                if data_mesh:
+                    shards = [(M.rank_rows(len(images), self.mesh, r), d) for r, d in enumerate(self.mesh.devices)]
+                else:
+                    shards = [(np.arange(len(images)), self.device)]
             with T.span("jabd.detect.upload"):
-                pieces = M.shard_batch(inputs, self.mesh) if data_mesh else [tuple(t.to(self.device) for t in inputs)]
+                pieces = [
+                    (I.upload_to_bucket([sources[i] for i in rows], (bh, bw), dev),
+                     *(torch.from_numpy(p[rows]).to(dev) for p in plans))
+                    for rows, dev in shards
+                ]
+                T.count("detect.upload_bytes", sum(s.nbytes for s in sources) + sum(p.nbytes for p in plans))
             frames = []
             with torch.inference_mode():
                 for piece in pieces:

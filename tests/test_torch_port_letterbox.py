@@ -1,7 +1,9 @@
 """PyTorch port, the batched device letterbox and the image pyramid:
 `resample_canvas` on a rectangular canvas, the cv2 taps functions (copies,
-equal to the JAX package's arrays), `plan_letterbox` +
-`letterbox_batch_device`, `plan_pyramid` + `pyramid_batch_device` and the
+equal to the JAX package's arrays), `plan_letterbox` (taps that expand to
+the JAX package's dense matrices) + `upload_to_bucket` +
+`letterbox_batch_device` (bit for bit the dense recipe it replaced),
+`plan_pyramid` + `pyramid_batch_device` and the
 cv2-free float32 INTER_CUBIC resize, each against the JAX package on the
 same inputs and against the host recipes (cv2) under the JAX tests'
 bounds (tests/test_letterbox_batch.py)."""
@@ -78,6 +80,106 @@ def _jax_letterbox(padded, parts, jdt):
     )
 
 
+def _dense(plan, bucket):
+    """A taps-form plan's (mv, mh, inside_v, inside_h), mv and mh expanded
+    into float32 dense matrices on the CPU."""
+    xv, wv, iv, xh, wh, ih = plan
+    mv, mh = (TR.expand_taps(*_t(x[None], w[None]), n, torch.float32)[0].numpy()
+              for x, w, n in ((xv, wv, bucket[0]), (xh, wh, bucket[1])))
+    return mv, mh, iv, ih
+
+
+def _device_letterbox(sources, plans, bucket, dtype):
+    """The port's recipe: the sources' own bytes in a bucket made with
+    `upload_to_bucket`, the stacked taps, `letterbox_batch_device`."""
+    src = TI.upload_to_bucket(sources, bucket, "cpu")
+    return TI.letterbox_batch_device(src, *_t(*(np.stack(p) for p in zip(*plans))), resample_dtype=dtype)
+
+
+def parent_letterbox(images, target, bucket, letterbox=True, dtype=torch.bfloat16):
+    """The dense recipe the taps replaced: per image `paste_resize_matrix`
+    with cv2's bilinear taps, the sources padded to the bucket on the host
+    and stacked, `resample_canvas`, the means. Sources within the bucket."""
+    mats = []
+    for im in images:
+        ih, iw = im.shape[:2]
+        if letterbox:
+            _, nh, nw, top, left = TI.letterbox_params((ih, iw), target)
+        else:
+            nh, nw, top, left = target[0], target[1], 0, 0
+        mv, iv = TR.paste_resize_matrix(ih, nh, top, target[0], bucket[0], taps=TR.cv2_bilinear_taps)
+        mh, ihm = TR.paste_resize_matrix(iw, nw, left, target[1], bucket[1], taps=TR.cv2_bilinear_taps)
+        mats.append((mv, mh, iv, ihm))
+    padded = np.stack([TI.pad_to_bucket(im, bucket) for im in images])
+    y = TR.resample_canvas(*_t(padded, *(np.stack(m) for m in zip(*mats))), TI.LETTERBOX_FILL, dtype)
+    return y - torch.tensor(TI.MEANS)
+
+
+# (source [h, w], target, bucket, letterbox): the cells' 3:4 image (1365 x
+# 1024 in a 1408 x 1024 bucket at 1280), a 1 x 1 source, a source over the
+# bucket (pre-shrunk), a plain resize, a wide and a tall source.
+PLAN_CASES = {
+    "cells_3x4_at_1280": ((1365, 1024), (1280, 1280), (1408, 1024), True),
+    "one_pixel": ((1, 1), (64, 80), (128, 128), True),
+    "over_the_bucket": ((300, 500), (128, 128), (256, 256), True),
+    "no_letterbox": ((90, 70), (64, 80), (128, 128), False),
+    "wide": ((96, 200), (96, 112), (256, 256), True),
+    "tall": ((200, 40), (96, 112), (256, 256), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_plan_letterbox_expands_to_the_jax_matrices(case):
+    """Taps of two weights a row; expanded in float32 they equal the JAX
+    package's dense plan arrays; the source is the image's own bytes (or
+    its pre-shrink, a grey level from cv2's)."""
+    shape, target, bucket, letterbox = PLAN_CASES[case]
+    img = _smooth(np.random.default_rng(7), *shape) if min(shape) > 1 else np.full((*shape, 3), 201, np.uint8)
+    source, plan = TI.plan_letterbox(img, target, bucket, letterbox)
+    jpadded, jparts = JI.plan_letterbox(img, target, bucket, letterbox)
+    xv, wv, iv, xh, wh, ih = plan
+    assert xv.dtype == xh.dtype == np.int32 and wv.shape == (target[0], 2) and wh.shape == (target[1], 2)
+    assert wv.dtype == wh.dtype == iv.dtype == ih.dtype == np.float32
+    for got, want in zip(_dense(plan, bucket), jparts):
+        np.testing.assert_array_equal(got, want)
+    assert source.dtype == np.uint8 and source.flags.c_contiguous
+    h, w = source.shape[:2]
+    if case == "over_the_bucket":
+        assert (h, w) == (153, 256)
+        assert np.abs(source.astype(int) - jpadded[:h, :w]).max() <= 1
+    else:
+        assert source.shape == img.shape
+        np.testing.assert_array_equal(source, img)
+        np.testing.assert_array_equal(jpadded[:h, :w], img)
+
+
+def test_upload_to_bucket_copies_each_image_into_its_corner():
+    rng = np.random.default_rng(8)
+    imgs = [rng.integers(0, 256, hw + (3,), dtype=np.uint8) for hw in ((5, 7), (8, 3), (1, 1))]
+    bucket = TI.upload_to_bucket(imgs, (8, 8), "cpu")
+    assert bucket.shape == (3, 8, 8, 3) and bucket.dtype == torch.uint8
+    for row, im in zip(bucket, imgs):
+        np.testing.assert_array_equal(row[: im.shape[0], : im.shape[1]].numpy(), im)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_letterbox_batch_equals_the_dense_recipe_bit_for_bit(dtype):
+    """The cells' batch (1024 wide, 4:3, 3:2, 16:9, 3:4, two each) a
+    quarter the size, at a 320 target: the taps expanded on the device over
+    the images' own bytes give the frames of the dense matrices over the
+    host-padded stack, to the bit."""
+    tdt = DTYPES[dtype][1]
+    rng = np.random.default_rng(9)
+    imgs = [_smooth(rng, 256 * b // a, 256) for a, b in ((4, 3), (3, 2), (16, 9), (3, 4)) for _ in range(2)]
+    target = (320, 320)
+    bucket = (-(-max(im.shape[0] for im in imgs) // 128) * 128, 256)
+    sources, plans = zip(*(TI.plan_letterbox(im, target, bucket) for im in imgs))
+    got = _device_letterbox(sources, plans, bucket, tdt)
+    want = parent_letterbox(imgs, target, bucket, dtype=tdt)
+    assert got.shape == (8, 320, 320, 3) and bucket == (384, 256)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_letterbox_batch_matches_jax_and_host(dtype):
     """One batch of four source sizes (two over the target, two under,
@@ -86,16 +188,16 @@ def test_letterbox_batch_matches_jax_and_host(dtype):
     rng = np.random.default_rng(1)
     target, bucket = (96, 112), (256, 256)
     imgs = [_smooth(rng, *hw) for hw in ((96, 128), (128, 96), (64, 64), (200, 40))]
-    planned = [TI.plan_letterbox(im, target, bucket) for im in imgs]
-    for im, (padded, parts) in zip(imgs, planned):
-        jpadded, jparts = JI.plan_letterbox(im, target, bucket)
+    sources, plans = zip(*(TI.plan_letterbox(im, target, bucket) for im in imgs))
+    jplanned = [JI.plan_letterbox(im, target, bucket) for im in imgs]
+    for im, source, plan, (jpadded, jparts) in zip(imgs, sources, plans, jplanned):
         ih, iw = im.shape[:2]
-        np.testing.assert_array_equal(padded[:ih, :iw], jpadded[:ih, :iw])
-        for got, want in zip(parts, jparts):
+        np.testing.assert_array_equal(source, jpadded[:ih, :iw])
+        for got, want in zip(_dense(plan, bucket), jparts):
             np.testing.assert_array_equal(got, want)
-    padded = np.stack([p for p, _ in planned])
-    parts = [np.stack(p) for p in zip(*(q for _, q in planned))]
-    got = TI.letterbox_batch_device(*_t(padded, *parts), resample_dtype=tdt).numpy()
+    padded = np.stack([p for p, _ in jplanned])
+    parts = [np.stack(p) for p in zip(*(q for _, q in jplanned))]
+    got = _device_letterbox(sources, plans, bucket, tdt).numpy()
     want = _jax_letterbox(padded, parts, jdt)
     assert got.shape == (4, 96, 112, 3) and got.dtype == np.float32
     err = np.abs(got - want)
@@ -121,14 +223,13 @@ def test_oversize_source_pre_shrinks_within_a_grey_level():
     (`resize_np`), in the JAX package with cv2 INTER_LINEAR."""
     rng = np.random.default_rng(2)
     img = _smooth(rng, 300, 500)
-    padded, parts = TI.plan_letterbox(img, (128, 128), (256, 256))
+    source, plan = TI.plan_letterbox(img, (128, 128), (256, 256))
     jpadded, jparts = JI.plan_letterbox(img, (128, 128), (256, 256))
-    assert padded.shape == (256, 256, 3)
-    for got, want in zip(parts, jparts):
+    assert source.shape == (153, 256, 3)  # the shrunk source's size
+    for got, want in zip(_dense(plan, (256, 256)), jparts):
         np.testing.assert_array_equal(got, want)
-    h, w = 153, 256  # the shrunk source's size
-    assert np.abs(padded[:h, :w].astype(int) - jpadded[:h, :w]).max() <= 1
-    got = TI.letterbox_batch_device(*_t(padded[None], *(p[None] for p in parts)), resample_dtype=torch.float32)
+    assert np.abs(source.astype(int) - jpadded[:153, :256]).max() <= 1
+    got = _device_letterbox([source], [plan], (256, 256), torch.float32)
     want = _jax_letterbox(jpadded[None], [p[None] for p in jparts], jnp.float32)
     # observed max error 1.0 (a grey level of the pre-shrink, resampled)
     assert np.abs(got.numpy() - want).max() <= 2.0
@@ -137,8 +238,8 @@ def test_oversize_source_pre_shrinks_within_a_grey_level():
 def test_letterbox_without_letterbox_is_a_plain_resize():
     rng = np.random.default_rng(3)
     img = _smooth(rng, 90, 70)
-    padded, parts = TI.plan_letterbox(img, (64, 80), (128, 128), letterbox=False)
-    got = TI.letterbox_batch_device(*_t(padded[None], *(p[None] for p in parts)), resample_dtype=torch.float32)
+    source, plan = TI.plan_letterbox(img, (64, 80), (128, 128), letterbox=False)
+    got = _device_letterbox([source], [plan], (128, 128), torch.float32)
     host = JI.preprocess_input_np(cv2.resize(img, (80, 64)).astype(np.float32))
     assert np.abs(got[0].numpy() - host).max() <= 2.0
 

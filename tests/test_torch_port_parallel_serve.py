@@ -6,7 +6,8 @@ shard_map), on the trained golden fixture of tests/test_torch_port_eval.py
 (retinaface_mnet025 at 96x96, float32, BatchNorms unfolded):
 
 - `detect_preprocessed` and `detect_images` (mixed sizes), against JAX's
-  mesh Predictor and the port's single-replica one;
+  mesh Predictor and the port's single-replica one; each replica's frames
+  against the dense letterbox recipe, bit for bit;
 - an indivisible batch raises; a mesh of one is the plain path;
 - the WIDER sweep over the mesh against JAX's sweep dumps;
 - an artifact served over the mesh (`load_exported(mesh=)`);
@@ -35,12 +36,14 @@ from jabd_tpu.predict import Predictor as JPredictor
 from jabd_tpu_torch import aot, cli
 from jabd_tpu_torch import configs as TC
 from jabd_tpu_torch.eval import run_wider as TRW
+from jabd_tpu_torch.ops import image as I
 from jabd_tpu_torch.parallel import mesh as M
 from jabd_tpu_torch.predict import Predictor
 from jabd_tpu_torch.serve import BatchingDetector
 from tests._torch_port_steps import one_torch_thread  # noqa: F401
 from tests.test_torch_port_cli import GOLDEN, _dumps, golden_tree  # noqa: F401
 from tests.test_torch_port_eval import _image, _read_dump, _sorted, predictors, val_tree  # noqa: F401
+from tests.test_torch_port_letterbox import parent_letterbox
 
 CPU2 = ["--device", "cpu,cpu"]
 
@@ -108,6 +111,33 @@ def test_detect_images_over_the_mesh_matches_jax(mesh_predictors):
         # resample on both sides); observed max 3.1e-5 px against JAX, 0 to
         # the single replica
         np.testing.assert_allclose(_sorted(g), _sorted(np.asarray(w)), atol=0.05, rtol=1e-4)
+        np.testing.assert_allclose(_sorted(g), _sorted(o), atol=1e-4, rtol=0)
+
+
+def test_detect_images_over_the_mesh_letterboxes_bit_for_bit(mesh_predictors, monkeypatch):
+    """Each replica's bucket, made on its device from its rows' own bytes,
+    and its taps give the frames of the dense recipe the taps replaced
+    (tests/test_torch_port_letterbox.py::parent_letterbox) to the bit; the
+    detections equal the single replica's."""
+    _, tmesh, tpred = mesh_predictors
+    rng = np.random.default_rng(6)
+    images = [_image("img_1"), _image("img_2")[:70, :90], rng.integers(0, 256, (50, 120, 3), dtype=np.uint8),
+              _image("img_0")]
+    frames = []
+    letterbox = I.letterbox_batch_device
+
+    def keep(*args, **kwargs):
+        frames.append(letterbox(*args, **kwargs))
+        return frames[-1]
+
+    monkeypatch.setattr(I, "letterbox_batch_device", keep)
+    got = tmesh.detect_images(images)
+    assert [f.shape[0] for f in frames] == [2, 2]
+    bucket = tuple(-(-max(im.shape[d] for im in images) // 128) * 128 for d in (0, 1))
+    assert torch.equal(torch.cat(frames), parent_letterbox(images, tpred.pcfg.input_shape, bucket))
+    one = tpred.detect_images(images)
+    assert sum(map(len, got)) > 0
+    for g, o in zip(got, one):  # observed 0
         np.testing.assert_allclose(_sorted(g), _sorted(o), atol=1e-4, rtol=0)
 
 

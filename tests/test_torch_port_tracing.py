@@ -34,6 +34,7 @@ from jabd_tpu_torch import serve as SV
 from jabd_tpu_torch import train as TT
 from jabd_tpu_torch.models import build_model
 from jabd_tpu_torch.ops import anchors as A
+from jabd_tpu_torch.ops import image as I
 from jabd_tpu_torch.ops import nms as N
 from jabd_tpu_torch.ops import nms_cuda
 from jabd_tpu_torch.parallel import mesh as M
@@ -141,7 +142,7 @@ def test_detect_spans_one_set_per_call(predictor, images):
     assert all(t.count == 2 and t.stream_ns is None for t in reading.totals.values())  # nothing timed on a CPU
     top = reading.totals["jabd.detect"]
     assert top.host_ns - top.self_ns == sum(reading.totals[f"jabd.detect.{s}"].host_ns for s in STAGES)
-    assert set(reading.counters) == set(nms_cuda.COUNTERS)
+    assert set(reading.counters) == set(nms_cuda.COUNTERS) | {"detect.upload_bytes"}
     assert 0 < reading.counters["k1.useful_pairs"] < reading.counters["k1.pairs"]
 
     # The kineto trace holds the ranges: one set of stages in each jabd.detect.
@@ -164,6 +165,28 @@ def test_detect_spans_one_set_per_call(predictor, images):
     assert b > a and PT._innermost(intervals, [(a + b) // 2]) == ["jabd.detect.prepare"]
 
 
+def upload_bytes(images) -> int:
+    plan_bytes = len(images) * 4 * (1 + I.LETTERBOX_TAPS_K + 1) * (SIZE + SIZE)
+    return sum(im.nbytes for im in images) + plan_bytes
+
+
+def test_upload_bytes_count_what_crosses_to_the_device(predictor, images):
+    """A detect_images call counts the images' own bytes and the plans':
+    per image, axis and canvas row a tap index, two weights and a pasted
+    flag, four bytes each. A second call counts as much again; off, the
+    counter stays as the last session left it."""
+    want = upload_bytes(images)
+    with profiler():
+        predictor.detect_images(images)
+    assert T.read().counters["detect.upload_bytes"] == want
+    with profiler():
+        predictor.detect_images(images)
+        predictor.detect_images(images[::-1])
+    assert T.read().counters["detect.upload_bytes"] == 2 * want
+    predictor.detect_images(images)
+    assert T.read().counters["detect.upload_bytes"] == 2 * want
+
+
 def test_preprocessed_spans(predictor):
     with profiler() as prof:
         predictor.detect_preprocessed(np.zeros((2, SIZE, SIZE, 3), np.float32))
@@ -184,6 +207,7 @@ def test_mesh_spans_one_set_per_replica(model_cfg, state_dict, images, partition
     for stage in ("letterbox", "forward", "select", "k1", "compact"):
         assert totals[f"jabd.detect.{stage}"].count == replicas
     assert totals["jabd.detect"].count == totals["jabd.detect.prepare"].count == 1
+    assert T.read().counters["detect.upload_bytes"] == upload_bytes(images)
 
 
 def _batch(model_cfg, seed=5, bsz=2, g=4):
