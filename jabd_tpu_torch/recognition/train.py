@@ -48,6 +48,7 @@ from jabd_tpu_torch.models.retinaface import dropout_seed
 from jabd_tpu_torch.parallel import mesh as M
 from jabd_tpu_torch.recognition import identification as ID
 from jabd_tpu_torch.recognition import verification as V
+from jabd_tpu_torch.utils import tracing as T
 
 # Steps a loop may run ahead of the host before it waits for an old loss.
 MAX_IN_FLIGHT = 3
@@ -160,7 +161,13 @@ def make_train_step(microbatches: int = 1, compute_dtype: str = "float32", seed:
     BatchNorm normalizes per chunk (ghost BN) and its statistics carry from
     chunk to chunk, as does AdaFace's norm EMA; the summed gradients are
     divided by the count before one update; metrics are the chunks' means.
-    Raises ValueError when the batch does not divide."""
+    Raises ValueError when the batch does not divide.
+
+    Each step opens a `jabd.rectrain.step` span holding, per chunk,
+    `.forward` (the backbone), `.head` (margin head and cross-entropy) and
+    `.backward`, then `.optimizer` (the update); the four time the card's
+    stream (utils/tracing.py: recorded only while a torch profiler
+    records)."""
     return _make_step(microbatches, compute_dtype, seed, augment=None)
 
 
@@ -175,7 +182,7 @@ def make_train_step_aug(
     from jabd_tpu_torch.recognition.device_augment import device_augment_faces
 
     def augment(images_u8, plan, part):
-        with torch.no_grad():
+        with torch.no_grad(), T.span("jabd.rectrain.augment"):
             return device_augment_faces(images_u8[part], type(plan)(*(t[part] for t in plan)), resample_dtype)
 
     return _make_step(microbatches, compute_dtype, seed, augment=augment)
@@ -186,16 +193,20 @@ def _make_step(microbatches: int, compute_dtype: str, seed: int, augment):
     mb = max(microbatches, 1)
 
     def chunk_backward(state: RecTrainState, images, labels, stream: int):
-        x = images.permute(0, 3, 1, 2)
-        generator = None
-        if state.model.dropout > 0.0:
-            generator = torch.Generator(x.device).manual_seed(dropout_seed(seed, stream))
-        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-            emb, norm = state.model(x, generator=generator)
-        # The margin head stays float32 (outside autocast) under bf16.
-        logits = state.head(emb.float(), norm.float(), labels)
-        loss = F.cross_entropy(logits, labels.long())
-        loss.backward()  # adds into .grad
+        dev = images.device
+        with T.span("jabd.rectrain.forward", dev):
+            x = images.permute(0, 3, 1, 2)
+            generator = None
+            if state.model.dropout > 0.0:
+                generator = torch.Generator(x.device).manual_seed(dropout_seed(seed, stream))
+            with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+                emb, norm = state.model(x, generator=generator)
+        with T.span("jabd.rectrain.head", dev):
+            # The margin head stays float32 (outside autocast) under bf16.
+            logits = state.head(emb.float(), norm.float(), labels)
+            loss = F.cross_entropy(logits, labels.long())
+        with T.span("jabd.rectrain.backward", dev):
+            loss.backward()  # adds into .grad
         acc = (logits.detach().argmax(-1) == labels).float().mean()
         return loss.detach(), acc
 
@@ -203,21 +214,23 @@ def _make_step(microbatches: int, compute_dtype: str, seed: int, augment):
         b = labels.shape[0]
         if b % mb:
             raise ValueError(f"batch {b} not divisible by microbatches={mb}")
-        state.model.train()
-        state.head.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        n = b // mb
-        chunks = []
-        for i in range(mb):
-            part = slice(i * n, (i + 1) * n)
-            # A dropout stream per chunk: step * mb + i.
-            chunks.append(chunk_backward(state, make_images(part), labels[part], state.step * mb + i))
-        if mb > 1:
-            for _, p in state.named_parameters():
-                if p.grad is not None:
-                    p.grad.div_(mb)
-        loss, acc = (torch.stack(m).mean() for m in zip(*chunks))
-        state.apply_gradients()
+        with T.span("jabd.rectrain.step"):
+            state.model.train()
+            state.head.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            n = b // mb
+            chunks = []
+            for i in range(mb):
+                part = slice(i * n, (i + 1) * n)
+                # A dropout stream per chunk: step * mb + i.
+                chunks.append(chunk_backward(state, make_images(part), labels[part], state.step * mb + i))
+            with T.span("jabd.rectrain.optimizer", labels.device):
+                if mb > 1:
+                    for _, p in state.named_parameters():
+                        if p.grad is not None:
+                            p.grad.div_(mb)
+                loss, acc = (torch.stack(m).mean() for m in zip(*chunks))
+                state.apply_gradients()
         return state, {"loss": loss, "acc": acc}
 
     if augment is None:

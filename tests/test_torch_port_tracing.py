@@ -7,7 +7,9 @@ CPU at 64x64 in float32:
   spans per call, nested in its `jabd.detect` range, that
   `portbench.tracing`'s idle naming finds; data and spatial mesh calls
   one set a replica; a training step gives forward, loss > match,
-  backward and optimizer; each `jabd.serve.batch` holds its detect call;
+  backward and optimizer; a recognition step (`jabd.rectrain.step`) gives
+  forward, head, backward and optimizer, those four timed on the card's
+  stream; each `jabd.serve.batch` holds its detect call;
 - self time, sessions, the export guard, `profiling.trace`'s file;
 - stream time from timing events (faked on the CPU), folded and reused
   once complete; the counter tensors kernels add to;
@@ -250,6 +252,69 @@ def test_train_step_spans(model_cfg, microbatches):
     assert loss.self_ns == loss.host_ns - totals["jabd.train.match"].host_ns < loss.host_ns
 
 
+def _rec_step(microbatches=1):
+    """A tiny recognition train state (IR-18 at 32x32, 64-d, AdaFace over
+    10 classes, dropout 0.4) and its float32 step."""
+    from jabd_tpu_torch.recognition import heads as RH
+    from jabd_tpu_torch.recognition import net as RN
+    from jabd_tpu_torch.recognition import train as RT
+
+    torch.manual_seed(0)
+    state = RT.create_state(RN.IRBackbone(18, "ir", 64, 0.4, 32), RH.AdaFaceHead(10, 64), 100, lr=0.1)
+    bsz = 2 * microbatches  # train-mode BatchNorm wants 2 images a chunk
+    images = torch.rand(bsz, 32, 32, 3, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    return state, RT.make_train_step(microbatches=microbatches, seed=3), images, torch.arange(bsz) % 10
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_rectrain_step_spans(monkeypatch, microbatches):
+    """Each recognition step gives one `jabd.rectrain.step` holding, per
+    chunk, forward, head and backward, then optimizer; those four time the
+    card's stream (they pass the device), the step does not."""
+    state, step, images, labels = _rec_step(microbatches)
+    timed = set()
+    span = T.span
+
+    def spy(name, device=None):
+        if device is not None:
+            timed.add(name)
+        return span(name, device)
+
+    monkeypatch.setattr(T, "span", spy)
+    with profiler() as prof:
+        step(state, images, labels)
+        step(state, images, labels)
+    totals = T.read().totals
+    phases = ["forward", "head", "backward"] * microbatches + ["optimizer"]
+    assert {n: t.count for n, t in totals.items()} == {
+        "jabd.rectrain.step": 2, **{f"jabd.rectrain.{p}": 2 * phases.count(p) for p in phases}
+    }
+    assert timed == {f"jabd.rectrain.{p}" for p in ("forward", "head", "backward", "optimizer")}
+    host = host_events(prof)
+    steps = named(host, "jabd.rectrain.step")
+    assert len(steps) == 2
+    for ev in steps:
+        kids = [c for c in inside(host, ev) if c.name().startswith("jabd.")]
+        assert [c.name() for c in kids] == [f"jabd.rectrain.{p}" for p in phases]
+
+
+def test_rectrain_step_off_records_nothing(monkeypatch):
+    """No profiler: the recognition step enters no record_function, makes
+    no CUDA event and the recorder keeps nothing."""
+    state, step, images, labels = _rec_step()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("touched while tracing is off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    session = T._session
+    before = (dict(session.totals), len(session.pending), dict(session.counts))
+    step(state, images, labels)
+    assert T._session is session and (dict(session.totals), len(session.pending), dict(session.counts)) == before
+    assert state.step == 1
+
+
 def test_self_time_is_duration_minus_children():
     with profiler():
         with T.span("jabd.a"):
@@ -479,6 +544,10 @@ READERS = {
     "loss_ms.train.re50": ("train", 8.0 / 4),
     "backward_ms.train": ("train", 60.0 / 4),
     "optimizer_ms.train.re50": ("train", 4.0 / 4),
+    "forward_ms.rectrain": ("rectrain", 80.0 / 4),
+    "head_ms.rectrain": ("rectrain", 6.0 / 4),
+    "backward_ms.rectrain": ("rectrain", 120.0 / 4),
+    "optimizer_ms.rectrain": ("rectrain", 5.0 / 4),
 }
 
 
@@ -494,6 +563,10 @@ def test_span_readers(monkeypatch, name):
         "jabd.train.loss": (4, 9 * ms, 5 * ms, 8 * ms),
         "jabd.train.backward": (4, 9 * ms, 9 * ms, 60 * ms),
         "jabd.train.optimizer": (4, 9 * ms, 9 * ms, 4 * ms),
+        "jabd.rectrain.forward": (4, 9 * ms, 9 * ms, 80 * ms),
+        "jabd.rectrain.head": (4, 2 * ms, 2 * ms, 6 * ms),
+        "jabd.rectrain.backward": (4, 9 * ms, 9 * ms, 120 * ms),
+        "jabd.rectrain.optimizer": (4, 3 * ms, 3 * ms, 5 * ms),
     }
     reading = T.Reading({k: T.Total(*v) for k, v in totals.items()}, {"k1.pairs": 400, "k1.useful_pairs": 100})
     driver, want = READERS[name]
