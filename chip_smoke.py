@@ -12,15 +12,16 @@ Phases, each of which ends the run with a non-zero exit on a mismatch:
    0.3 and 0.45, n_valid 0 / 1 / 37 / K, duplicate boxes, zero-area boxes
    and grid-aligned boxes (exactly tied metrics); then valid rows that are
    not a prefix, DIoU at threshold -0.1, K = 64 and 65, K = 12,288 (the
-   old cap), and K 5000 under forced plans (several bands, small column
-   chunks). Then past the old cap: K 12,289, 16,800 (the 640x640
-   anchors), 67,200 (1280x1280: B 2 all valid, and the 8 edge images in
-   DIoU) and 272,000 (re152_4level at 1280, B 1: ~20,000 valid rows
-   scattered; then the preset's jittered anchors 99% valid, every band at
-   work, held to the greedy rule with the plain metric instead of the
-   plain loop), each with its bands, its scratch against the 1 GiB
-   budget, kernel and plain times, device time by kernel and bound. Keep
-   masks must be identical.
+   old cap), and K 5000 under forced plans (clusters of 1, 2 and 16
+   blocks, chunks of 64 to 256, slices of a few kept rows so that the
+   overflow list holds most of them). Then past the old cap: K 12,289,
+   16,800 (the 640x640 anchors), 67,200 (1280x1280: B 2 all valid, and
+   the 8 edge images in DIoU) and 272,000 (re152_4level at 1280, B 1:
+   ~20,000 valid rows scattered; then the preset's jittered anchors 99%
+   valid, held to the greedy rule with the plain metric instead of the
+   plain loop), each with its cluster width, chunk and overflow scratch
+   against the 1 GiB budget, kernel and plain times, device time by
+   kernel and bound. Keep masks must be identical.
 2. Serving: jabd_flagship at full width, 640x640, random weights from a
    seeded torch.Generator (random BatchNorm state, NLM output projection
    non-zero), confidence 0.02. With every launch count set to 0 it runs
@@ -393,14 +394,36 @@ def nms_cases(k: int, seed: int, n_long=None):
     return torch.from_numpy(boxes), torch.from_numpy(valid)
 
 
-def forced_plan(bsz: int, k: int, bands, chunk: int):
-    """A K1 plan with the given bands and chunk, its scratch sized as
-    nms_cuda.plan sizes it: the path of a large K at a small one."""
+def forced_plan(bsz: int, k: int, width: int, chunk: int, cap: int):
+    """A K1 plan with the given blocks an image, chunk and slice size, its
+    overflow list sized as nms_cuda.plan sizes it: the path of a large K
+    (or a small batch) at a small one."""
     from jabd_tpu_torch.ops import nms_cuda
 
-    nb = -(-k // nms_cuda.WORD)
-    words = max(bsz * (r1 - r0) * (nb - r0) * nms_cuda.WORD for r0, r1 in bands)
-    return nms_cuda.Plan(tuple(bands), chunk, words, bsz * nb, -(-bsz // 2))
+    return nms_cuda.Plan(width, chunk, cap, max(0, k - max(1, width - 1) * cap), bsz)
+
+
+def k1_work(valid, keep, chunk: int):
+    """(pairs, useful) as csrc/nms.cu counts them for chunks of `chunk`:
+    per chunk with a valid candidate, its valid candidates times the kept
+    rows before it, plus, per valid row r of the chunk below n_valid, the
+    valid columns after r in the chunk; n_valid - 1 - i a kept row
+    i < n_valid."""
+    v, kp = valid.cpu().numpy(), keep.cpu().numpy()
+    pairs = useful = 0
+    for b in range(v.shape[0]):
+        n = int(v[b].sum())
+        kept = np.flatnonzero(kp[b, :n])
+        useful += int((n - 1 - kept).sum())
+        for s in range(0, v.shape[1], chunk):
+            cv = v[b, s : s + chunk]
+            if not cv.any():
+                continue
+            pairs += int(np.searchsorted(kept, s)) * int(cv.sum())
+            after = np.cumsum(cv[::-1])[::-1]  # valid columns at or after each position
+            rows = cv & (np.arange(s, s + len(cv)) < n)
+            pairs += int((after[rows] - 1).sum())
+    return pairs, useful
 
 
 def nms_domain_cases():
@@ -408,11 +431,11 @@ def nms_domain_cases():
     thr, kind, by_rule): K 12,289 (random and grid-tied images, all valid),
     16,800 (the flagship's 640x640 anchors: the 8 edge images), 67,200
     (1280x1280: two random images all valid; the 8 edge images, their long
-    ones at 20,000 valid rows, past the first of the 3 bands at B 8, so
-    that the plain loop stays short), 272,000 (re152_4level at 1280x1280,
-    one image: ~20,000 valid rows scattered over K; then the preset's own
-    anchors, jittered, in a random score order, 99% valid, so that every
-    band has work). by_rule: the last is held to the greedy rule
+    ones at 20,000 valid rows, so that the plain loop stays short), 272,000
+    (re152_4level at 1280x1280, one image: ~20,000 valid rows scattered
+    over K, most chunks of the walk without a valid row; then the preset's
+    own anchors, jittered, in a random score order, 99% valid: K1's
+    heaviest load, one cluster on ~270,000 rows). by_rule: the last is held to the greedy rule
     (`greedy_rule_holds`) instead of the plain loop, whose ~270,000 steps
     would take minutes."""
     cases = []
@@ -502,11 +525,13 @@ def nms_phase(dev, card: str):
             cases.append((f"K={k} {kind} thr=0.3", small, small_valid, 0.3, kind))
     large, large_valid = nms_cases(12288, seed=12288)  # images 3 (random) and 6 (ties), all valid
     cases.append(("K=12288 (the old cap) iou thr=0.3", large[[3, 6]], large_valid[[3, 6]], 0.3, "iou"))
-    # The banded path at K 5000, under forced plans: bands, column chunks.
+    # K 5000 under forced plans: other cluster widths and chunks, slices of
+    # a few kept rows, the rest in the overflow list.
     boxes, valid = nms_cases(5000, seed=5000)
     forced = [
-        ("iou", forced_plan(8, 5000, [(0, 3), (3, 10), (10, 79)], 5)),
-        ("diou", forced_plan(8, 5000, [(0, 1), (1, 2), (2, 40), (40, 79)], 7)),
+        ("iou", forced_plan(8, 5000, 16, 64, 3)),
+        ("diou", forced_plan(8, 5000, 2, 128, 40)),
+        ("iou", forced_plan(8, 5000, 1, 256, 100)),
     ]
     worst = 0.0
     for name, boxes_, valid_, thr, kind in cases:
@@ -521,7 +546,7 @@ def nms_phase(dev, card: str):
     b_d, v_d = boxes.to(dev).contiguous(), valid.to(dev).contiguous()
     plan = nms_cuda.plan
     for kind, pl in forced:
-        nms_cuda.plan = lambda bsz, k, pl=pl: pl
+        nms_cuda.plan = lambda *args, pl=pl: pl
         try:
             got = nms_cuda.nms_keep_sorted(b_d, v_d, 0.3, kind)
         finally:
@@ -529,7 +554,7 @@ def nms_phase(dev, card: str):
         want = N.nms_keep_sorted(b_d, v_d, 0.3, kind)
         torch.cuda.synchronize()
         worst = max(worst, float((got.float() - want.float()).abs().max()))
-        print(f"[phase1] K=5000 {kind} thr=0.3 forced plan bands {list(pl.bands)} chunk {pl.chunk}: "
+        print(f"[phase1] K=5000 {kind} thr=0.3 forced plan width {pl.width} chunk {pl.chunk} cap {pl.cap}: "
               f"mismatches {int((got != want).sum())}")
         check(torch.equal(got, want), f"kernel == plain at K 5000 {kind} under a forced plan")
     # Past the old cap: each shape checked, timed, bounded.
@@ -563,7 +588,7 @@ def nms_phase(dev, card: str):
         held = (f"greedy rule {'holds' if same else 'FAILS'} ({check_ms:.3f} ms; plain loop not run)" if by_rule
                 else f"mismatches {int((got != want).sum())}")
         print(f"[phase1] {name}: B={b} valid/image {valid_.sum(1).tolist()} kept/image {want.sum(1).tolist()} "
-              f"{held}; {len(pl.bands)} band(s), chunk {pl.chunk}, scratch {pl.scratch_bytes} of the "
+              f"{held}; width {pl.width}, chunk {pl.chunk}, scratch {pl.scratch_bytes} of the "
               f"{budget}-byte budget; kernel {ms:.4f} ms (device {fmt_ms(dev_ms)}), plain "
               f"{'not measured' if plain_ms is None else f'{plain_ms:.3f} ms (one call)'}, bytes bound "
               f"{bytes_ms:.6f} ms, operations bound {ops_ms:.6f} ms [{card}]")
@@ -574,7 +599,7 @@ def nms_phase(dev, card: str):
         shapes.append({"shape": f"B={b} K={k} {kind}" + (" 99% valid" if by_rule else ""), "max_abs_err": err,
                        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                       "bands": len(pl.bands), "scratch_bytes": pl.scratch_bytes})
+                       "width": pl.width, "scratch_bytes": pl.scratch_bytes})
         del got, want
     torch.cuda.empty_cache()
     return worst, shapes
@@ -4342,7 +4367,7 @@ def main() -> int:
         err = float((d_k - d_p).abs().max())
         pl = nms_cuda.plan(bsz, k)
         print(f"[phase2] {tag} pre_nms_topk={pc.pre_nms_topk}: kernel and plain NMS give identical detections; "
-              f"K={k}, {len(pl.bands)} band(s), n_valid per image "
+              f"K={k}, width {pl.width}, n_valid per image "
               f"{cand_valid.sum(1).tolist()}, detect_preprocessed valid dets {valid.sum(1).tolist()}; K1 on "
               f"these candidates {k1_ms:.4f} ms (device {fmt_ms(k1_dev)}), the plain postprocess {plain_ms:.3f} ms "
               f"(one call), bytes bound {bytes_ms:.6f} ms, operations bound {ops_ms:.6f} ms [{card}]")
@@ -4350,7 +4375,7 @@ def main() -> int:
                           "max_abs_err": err, "ms": k1_ms, "device_ms": k1_dev, "plain_ms": plain_ms,
                           "bound_ms": max(bytes_ms, ops_ms),
                           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                          "bands": len(pl.bands), "scratch_bytes": pl.scratch_bytes})
+                          "width": pl.width, "scratch_bytes": pl.scratch_bytes})
         del heads, d_k, d_p, cand_boxes, cand_valid
     del all_paths, all_dets
     torch.cuda.empty_cache()

@@ -12,7 +12,11 @@ building its kernels from its own csrc/, and called on the same inputs:
 
 - K1 on the serving path's candidates as chip_smoke.py makes them
   (jabd_flagship, bfloat16, batch 8 at 640x640, seeded weights), all
-  valid and with the valid rows cut to a prefix of 50 and 500;
+  valid and with the valid rows cut to a prefix of 50 and 500, and the
+  same candidates four times over (B 32); then every other shape of
+  PERF.md's K1 table: chip_smoke.nms_domain_cases (K 12,289 to 272,000),
+  the serving path at pre_nms_topk = P (640 bs 8, K 16,800; 1280 bs 2,
+  K 67,200) and the flagship's all-prior load at 1280 bs 8 (K 67,200);
 - K2 at B 34, G 128 and the 840x840 priors, on seeded faces with the GT
   counts of chip_smoke.py's batch-34 training targets.
 
@@ -58,6 +62,25 @@ def kernel_inputs(dev):
         kv_n = (kv & (torch.arange(kv.shape[1], device=dev) < n)).contiguous()
         cases[f"K1 B=8 K={kv.shape[1]} n_valid<={n}"] = (
             lambda nms, match, kv_n=kv_n: (nms(kb, kv_n, thr, kind),), 30)
+    kb32, kv32 = kb.repeat(4, 1, 1).contiguous(), kv.repeat(4, 1).contiguous()
+    cases[f"K1 B=32 K={kv.shape[1]}"] = (lambda nms, match: (nms(kb32, kv32, thr, kind),), 30)
+    for name, boxes, valid, t, kd, _ in C.nms_domain_cases():
+        boxes, valid = boxes.to(dev).contiguous(), valid.to(dev).contiguous()
+        iters = 3 if valid.shape[1] == 272000 and valid.float().mean() > 0.5 else 10
+        cases[f"K1 B={valid.shape[0]} {name}"] = (
+            lambda nms, match, b=boxes, v=valid, t=t, kd=kd: (nms(b, v, t, kd),), iters)
+    for size, bsz in ((640, 8), (1280, 2), (1280, 8)):
+        anc = torch.from_numpy(A.generate_anchors(preset.anchors, (size, size)).copy()).to(dev)
+        pc = configs.PredictConfig(confidence=0.02, input_shape=(size, size), pre_nms_topk=anc.shape[0])
+        pred = Predictor(preset, C.seeded_state_dict(preset, seed=0), pc, device="cuda")
+        x = np.random.default_rng(size + bsz).normal(0, 50, (bsz, size, size, 3)).astype(np.float32)
+        with torch.inference_mode():
+            heads = pred.model(torch.from_numpy(x).to(dev).permute(0, 3, 1, 2))
+            pb, _, pv, _ = select_candidates(*heads, anc, pc, preset.anchors.variance)
+        pb, pv = pb.contiguous(), pv.contiguous()
+        cases[f"K1 B={bsz} K={pv.shape[1]} serving at {size}, pre_nms_topk=P, {int(pv.sum())} valid"] = (
+            lambda nms, match, pb=pb, pv=pv: (nms(pb, pv, thr, kind),), 10)
+        del pred, heads
 
     priors = torch.from_numpy(A.generate_anchors(preset.anchors, (840, 840)).copy()).to(dev)
     rows = C.face_rows(np.random.default_rng(5), np.maximum(C.spread_counts(34, 128), 1))
@@ -83,7 +106,13 @@ def load_wrappers(root: str):
             f"{PACKAGE} loaded from {root}")
     for name, log in _build.build_all().items():
         C.print_ptxas(f"{root} {name}", log)
-    return nms_cuda.nms_keep_sorted, matching_cuda.match_front
+
+    # Not through torch.ops.jabd.nms_keep_sorted: each checkout registers
+    # that one operator, and the last import would serve both.
+    def nms(boxes, valid, thr=0.45, kind="iou", beta1=1.0, launch=nms_cuda._launch):
+        return launch(boxes, valid, float(thr), kind, float(beta1))
+
+    return nms, matching_cuda.match_front
 
 
 def main() -> int:

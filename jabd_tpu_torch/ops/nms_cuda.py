@@ -1,22 +1,24 @@
-"""Greedy NMS keep masks: the CUDA kernels `csrc/nms.cu` for tensors on
+"""Greedy NMS keep masks: the CUDA kernel `csrc/nms.cu` for tensors on
 the card, the plain version (`ops/nms.py`) for tensors on the CPU.
 
 Replaces `nms_keep_sorted_pallas_batched` (jabd_tpu/ops/nms_pallas.py),
 the serving path's one TPU kernel, and through `nms` its twin `nms_pallas`
-(one image, unsorted scores), for any K. Each band of 64-row blocks of the
-suppression bitmask (`plan`) launches two kernels on the current stream:
-the band's 64x64 tiles of candidate pairs (upper triangle, rows below
-n_valid), then a block-serial scan per image that applies the greedy rule
-64 boxes at a time and hands its removed set to the next band. Up to
-K 12,288 at B 32 there is one band. Keep masks equal the plain version's.
-`nms_keep_sorted.launches` counts the calls that launched them, one per
-call. While a profiler records, the kernels also count their work into
-the recorder's counters (utils/tracing.py): `k1.pairs`, the metric
-evaluations of the mask kernel (64 a suppression word it builds), and
-`k1.useful_pairs`, those greedy NMS needs (n_valid - 1 - i a kept row
-i < n_valid), added by the scan; no kernel more, no wait on the card. The
-plain version on the CPU counts its own evaluations (B * K a step, one
-step a row below the largest n_valid) and the same useful pairs.
+(one image, unsorted scores), for any K up to MAX_K. One launch a call on
+the current stream (after a memset of its exchange words): a group of
+`width` co-resident blocks per image walks the score-sorted candidates
+`chunk` at a time, tests each chunk against the rows already kept (dealt
+round-robin over the blocks' shared memory, past that into an overflow
+list in scratch) and resolves the chunk's own greedy order; `plan` sizes
+it from B, K and the card's SMs. Keep masks equal the plain
+version's. `nms_keep_sorted.launches` counts the calls that launched it,
+one per call. While a profiler records, the kernel also counts its work
+into the recorder's counters (utils/tracing.py): `k1.pairs`, the metric
+evaluations it makes (each valid candidate against each kept row before
+its chunk, and the chunk's own upper triangle), and `k1.useful_pairs`,
+those greedy NMS needs (n_valid - 1 - i a kept row i < n_valid); no
+kernel more, no wait on the card. The plain version on the CPU counts its
+own evaluations (B * K a step, one step a row below the largest n_valid)
+and the same useful pairs.
 
 The keep mask is the registered operator `torch.ops.jabd.nms_keep_sorted`
 (`torch.library.custom_op`): the CUDA launch for a tensor on the card, the
@@ -40,91 +42,106 @@ from jabd_tpu_torch.ops import nms as N
 from jabd_tpu_torch.utils import tracing
 
 _KIND_CODES = {"iou": 0, "diou": 1}
-COUNTERS = ("k1.pairs", "k1.useful_pairs")  # the slots `jabd_nms_band` adds to
+COUNTERS = ("k1.pairs", "k1.useful_pairs")  # the slots `jabd_nms_keep` adds to
 _lock = threading.Lock()
 
-# Device memory one call may take for scratch, whatever K: the largest
-# band's mask plus the removed bitsets and the n_valid counts. `plan` reads
-# it at each call.
+# Device memory one call may take for scratch (the exchange words and the
+# overflow list), whatever K. `plan` reads it at each call.
 SCRATCH_BYTES = 1 << 30
-WORD = 64  # boxes per mask word = rows per row block
-_TILE_BYTES = WORD * 8  # one 64x64 tile of the mask
-# The scan's dynamic shared memory (csrc/nms.cu, kScanSmem): two copy
-# buffers of `chunk` mask words each (512 bytes a word), then `removed`
-# (8 bytes a word). Chunks are CHUNK words, fewer where `removed` leaves
-# less room, and at least MIN_CHUNK, which bounds K.
-SCAN_SMEM = 227 * 1024 - 1024
-CHUNK = 192
-MIN_CHUNK = 32
-MAX_K = WORD * ((SCAN_SMEM - 2 * MIN_CHUNK * _TILE_BYTES) // 8)  # 1,589,248
+WORD = 64  # rows per resolve block = bits per triangle word
+SMS = 132  # an H100's SMs; the wrapper passes the card's own count
+CHUNK = 512  # candidates a step, at most; at least WORD
+MIN_ROWS = 256  # candidates a block of an image, at least (where there are enough blocks)
+STAGE = 256  # overflow entries a block stages in shared memory at once
+ENTRY_BYTES = 16  # a kept row in shared memory: its box (float4)
+# The kernel's dynamic shared memory (csrc/nms.cu, kSmem): the chunk's
+# triangle words (chunk * chunk / 8 bytes, staged by block 0), the boxes of
+# the slice (`cap` kept rows) and of the overflow stage, and two chunk
+# buffers' boxes and areas (20 bytes a candidate each).
+SMEM = 227 * 1024 - 1024
+MAX_K = 1_589_248  # the domain of the banded mask-and-scan kernels this one replaced, kept
 
 
 class Plan(NamedTuple):
-    """How one call of the kernels covers a [B, K] problem."""
+    """How one launch of the kernel covers a [B, K] problem."""
 
-    bands: Tuple[Tuple[int, int], ...]  # row-block ranges [r0, r1), in order, covering [0, nb)
-    chunk: int  # mask words per bulk copy of the scan
-    mask_words: int  # int64 words of the largest band's mask
-    removed_words: int  # B * nb
-    count_words: int  # int64 words holding the B int32 n_valid counts
+    width: int  # blocks an image: block 0 resolves, the others test (one block: both)
+    chunk: int  # candidates a step
+    cap: int  # kept rows a testing block holds in shared memory
+    overflow_words: int  # int32 entries of scratch per image: K - testers * cap, or 0
+    bsz: int
+
+    @property
+    def testers(self) -> int:
+        return max(1, self.width - 1)
+
+    @property
+    def smem_bytes(self) -> int:
+        return smem_bytes(self.chunk, self.cap)
+
+    @property
+    def exchange_words(self) -> int:
+        """int64 exchange words an image: the arrivals, the resolved steps,
+        the suppressed bits, the survivors, the triangle words."""
+        return 64 + self.chunk * self.chunk // WORD
 
     @property
     def scratch_bytes(self) -> int:
-        return 8 * (self.mask_words + self.removed_words + self.count_words)
+        return self.bsz * (8 * self.exchange_words + 4 * self.overflow_words)
 
 
-def plan(bsz: int, k: int) -> Plan:
-    """Bands and scan chunks for B images of K candidates, from B and K
-    alone (no wait on the card for n_valid): each band [r0, r1) takes as
-    many row blocks as fit SCRATCH_BYTES beside `removed` and the counts,
-    at B * (r1 - r0) * (nb - r0) * 512 bytes, so bands grow as the triangle
-    narrows. Raises where the kernels cannot take the problem: K above
-    MAX_K, or one row block of the batch over the budget."""
+def smem_bytes(chunk: int, cap: int) -> int:
+    return chunk * chunk // 8 + ENTRY_BYTES * (cap + STAGE) + 2 * 20 * chunk
+
+
+def plan(bsz: int, k: int, sms: int = SMS) -> Plan:
+    """The launch for B images of K candidates, from B, K and the card's
+    SMs alone (no wait on the card for n_valid): width = min(sms // B,
+    ceil(K / MIN_ROWS)) blocks an image (at least 1; B * width fit
+    the card at one block an SM, as a cooperative launch needs); chunks of
+    512 candidates (the next power of two >= K, at least 64, for fewer);
+    the slice each testing block keeps in shared memory as large as SMEM
+    leaves; the overflow list for the kept rows past testers * cap, up to
+    every candidate. Raises where the kernel cannot take the problem: K above
+    MAX_K, or its scratch over SCRATCH_BYTES."""
     if k > MAX_K:
         raise ValueError(
-            f"NMS of {k} boxes on the card: the scan keeps one removed bit a candidate in shared "
-            f"memory beside its copy buffers, K <= {MAX_K}; cut the candidates (pre_nms_topk)"
+            f"NMS of {k} boxes on the card: the kernel takes K <= {MAX_K}; cut the candidates (pre_nms_topk)"
         )
-    budget = SCRATCH_BYTES
-    nb = -(-k // WORD)
-    removed_words = bsz * nb
-    count_words = -(-bsz // 2)
-    room = budget - 8 * (removed_words + count_words)
-    row_bytes = bsz * nb * _TILE_BYTES  # one row block of the first band, all images
-    if room < row_bytes:
+    chunk = min(CHUNK, max(WORD, 1 << max(k - 1, 0).bit_length()))
+    width = max(1, min(sms // max(bsz, 1), -(-k // MIN_ROWS)))
+    cap = (SMEM - smem_bytes(chunk, 0)) // ENTRY_BYTES
+    pl = Plan(width, chunk, cap, max(0, k - max(1, width - 1) * cap), bsz)
+    if pl.scratch_bytes > SCRATCH_BYTES:
         raise ValueError(
-            f"NMS of {k} boxes at batch {bsz} on the card: one 64-row block of the suppression "
-            f"mask takes {row_bytes} bytes beside {budget - room} of bitsets, over the "
-            f"{budget}-byte scratch budget; cut the candidates (pre_nms_topk) or the batch"
+            f"NMS of {k} boxes at batch {bsz} on the card: the exchange words and the list of kept rows "
+            f"past the kernel's shared memory take {pl.scratch_bytes} bytes, over the {SCRATCH_BYTES}-byte "
+            "scratch budget; cut the candidates (pre_nms_topk) or the batch"
         )
-    bands, r0, mask_words = [], 0, 0
-    while r0 < nb:
-        row_words = bsz * (nb - r0) * WORD
-        r1 = min(nb, r0 + room // (8 * row_words))
-        bands.append((r0, r1))
-        mask_words = max(mask_words, (r1 - r0) * row_words)
-        r0 = r1
-    chunk = min(CHUNK, (SCAN_SMEM - 8 * nb) // (2 * _TILE_BYTES), nb)
-    return Plan(tuple(bands), chunk, mask_words, removed_words, count_words)
+    return pl
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load("nms")
-    lib.jabd_nms_band.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    lib.jabd_nms_keep.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
     ]
-    lib.jabd_nms_band.restype = ctypes.c_int
+    lib.jabd_nms_keep.restype = ctypes.c_int
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, kind: str, beta1: float) -> torch.Tensor:
-    """The two kernels on the card; checks what they take and raises on
-    anything else."""
+    """The kernel on the card; checks what it takes and raises on anything
+    else."""
     if boxes.device.type != "cuda" or valid.device != boxes.device:
         raise ValueError(
             f"boxes on {boxes.device} and valid on {valid.device}: both "
@@ -144,29 +161,25 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, kind
     if boxes.data_ptr() % 16:
         raise ValueError("boxes must be 16-byte aligned (float4 loads)")
     bsz, k = valid.shape
-    keep = torch.empty((bsz, k), dtype=torch.bool, device=boxes.device)
     if bsz == 0 or k == 0:
-        return keep
-    pl = plan(bsz, k)
+        return torch.empty((bsz, k), dtype=torch.bool, device=boxes.device)
+    index = boxes.device.index if boxes.device.index is not None else torch.cuda.current_device()
+    pl = plan(bsz, k, _sms(index))  # raises before anything is allocated
+    keep = torch.empty((bsz, k), dtype=torch.bool, device=boxes.device)
     lib = _library()
-    scratch = torch.empty(pl.scratch_bytes // 8, dtype=torch.int64, device=boxes.device)
+    xchg = torch.empty(bsz * pl.exchange_words, dtype=torch.int64, device=boxes.device)  # zeroed by the call
+    overflow = torch.empty(bsz * pl.overflow_words, dtype=torch.int32, device=boxes.device) if pl.overflow_words else None
     work = tracing.device_counts(COUNTERS, boxes.device)
     work = None if work is None else work.data_ptr()
-    mask = scratch.data_ptr()
-    removed = mask + 8 * pl.mask_words
-    counts = removed + 8 * pl.removed_words
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for r0, r1 in pl.bands:
-            err = lib.jabd_nms_band(
-                boxes.data_ptr(), valid.data_ptr(), mask, removed, counts, keep.data_ptr(),
-                bsz, k, r0, r1, pl.chunk, float(iou_threshold), _KIND_CODES[kind], float(beta1), stream,
-                work,
-            )
-            if err != 0:
-                raise RuntimeError(
-                    f"nms_keep_sorted kernel launch failed at band {r0}..{r1}: cudaError {err}"
-                )
+        err = lib.jabd_nms_keep(
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), None if overflow is None else overflow.data_ptr(),
+            xchg.data_ptr(), bsz, k, pl.width, pl.chunk, pl.cap, pl.overflow_words, float(iou_threshold),
+            _KIND_CODES[kind], float(beta1), stream, work,
+        )
+    if err != 0:
+        raise RuntimeError(f"nms_keep_sorted kernel launch failed: cudaError {err}")
     with _lock:
         nms_keep_sorted.launches += 1
     return keep
@@ -207,16 +220,13 @@ def nms_keep_sorted(
     """Exact greedy NMS keep masks [B, K] bool (see ops/nms.py), through
     the operator `jabd::nms_keep_sorted`.
 
-    On the card any K up to MAX_K: the call takes at most SCRATCH_BYTES
-    (1 GiB) of scratch from the caching allocator (`plan`): one band's
-    suppression mask, B * (r1 - r0) * (nb - r0) * 64 int64 words for row
-    blocks [r0, r1), nb = ceil(K / 64) (the whole B * nb * nb * 64 when one
-    band holds them: 25.6 MB at B 8, K 5000), plus B * nb words of removed
-    bits and B counts. It raises where one row block of the batch,
-    B * nb * 512 bytes, does not fit (B * K above ~132 M) and for K above
-    MAX_K (1,589,248, where the scan's removed bits fill its shared memory;
-    P is 272,000 for the largest preset at 1280x1280); it never falls back
-    to the plain loop."""
+    On the card any K up to MAX_K (1,589,248; P is 272,000 for the largest
+    preset at 1280x1280), in one launch (`plan`). Its scratch: the exchange
+    words, B * (64 + chunk^2 / 64) int64 (266 KB at B 8), and the list of
+    kept rows past the blocks' shared memory, B * (K - testers * cap) int32
+    where that is positive (none at B 8, K 67,200); it raises where they
+    would pass SCRATCH_BYTES (1 GiB) and for K above MAX_K, and never falls
+    back to the plain loop."""
     N.check_kind(kind)
     return torch.ops.jabd.nms_keep_sorted(boxes, valid, float(iou_threshold), kind, float(beta1))
 

@@ -12,7 +12,8 @@ one CUDA card.
    and the elapsed time of a pair.
 3. K1 (csrc/nms.cu) under a profiler, on chip_smoke.py's phase-1 inputs
    (IoU and DIoU, valid prefixes and scattered, K 64 to 12,288, two forced
-   plans of many bands) and K 67,200 at B 2 (two bands): the keep mask
+   plans: other cluster widths and chunks, the overflow list in use) and
+   K 67,200 at B 2: the keep mask
    equals the plain version's and the untraced kernel's, `k1.pairs` and
    `k1.useful_pairs` equal a count of the kernels' work from the inputs and
    the plain keep mask, and a traced call launches no kernel but K1's,
@@ -71,26 +72,6 @@ def kernels(prof) -> list:
             and not ev.name().startswith(("Memcpy", "Memset"))]
 
 
-def kernel_work(valid: torch.Tensor, keep: torch.Tensor):
-    """(pairs, useful) as csrc/nms.cu counts them: 64 evaluations for each
-    valid row i < n_valid and each column block at or right of its row
-    block that holds a valid box; n_valid - 1 - i a kept row i < n_valid."""
-    v, kp = valid.cpu().numpy(), keep.cpu().numpy()
-    k = v.shape[1]
-    nb = -(-k // 64)
-    pairs = useful = 0
-    for b in range(v.shape[0]):
-        n = int(v[b].sum())
-        blocks = np.zeros(nb * 64, bool)
-        blocks[:k] = v[b]
-        blocks = blocks.reshape(nb, 64)
-        rows = (blocks & (np.arange(nb * 64).reshape(nb, 64) < n)).sum(1)
-        cols_right = np.cumsum(blocks.any(1)[::-1])[::-1]  # column blocks cb >= rb with a valid box
-        pairs += 64 * int((rows * cols_right).sum())
-        useful += int((n - 1 - np.nonzero(kp[b, :n])[0]).sum())
-    return pairs, useful
-
-
 def k1_cases():
     """chip_smoke.nms_phase's inputs, forced plans included, then K 67,200."""
     for k in (5000, 4999):
@@ -107,10 +88,10 @@ def k1_cases():
     large, large_valid = chip_smoke.nms_cases(12288, seed=12288)
     yield "K=12288 iou", large[[3, 6]], large_valid[[3, 6]], 0.3, "iou", None
     boxes, valid = chip_smoke.nms_cases(5000, seed=5000)
-    yield "K=5000 iou, bands 0-3-10-79 chunk 5", boxes, valid, 0.3, "iou", \
-        chip_smoke.forced_plan(8, 5000, [(0, 3), (3, 10), (10, 79)], 5)
-    yield "K=5000 diou, bands 0-1-2-40-79 chunk 7", boxes, valid, 0.3, "diou", \
-        chip_smoke.forced_plan(8, 5000, [(0, 1), (1, 2), (2, 40), (40, 79)], 7)
+    yield "K=5000 iou, width 16 chunk 64 cap 3", boxes, valid, 0.3, "iou", \
+        chip_smoke.forced_plan(8, 5000, 16, 64, 3)
+    yield "K=5000 diou, width 2 chunk 128 cap 40", boxes, valid, 0.3, "diou", \
+        chip_smoke.forced_plan(8, 5000, 2, 128, 40)
     g = torch.Generator().manual_seed(67200)
     xy = torch.rand(2, 67200, 2, generator=g)
     wh = torch.rand(2, 67200, 2, generator=g) * 0.05
@@ -123,9 +104,9 @@ def counters_phase(dev) -> bool:
     plan = nms_cuda.plan
     for name, boxes, valid, thr, kind, forced in k1_cases():
         boxes, valid = boxes.to(dev).contiguous(), valid.to(dev).contiguous()
-        bands = len((forced or plan(*valid.shape)).bands)
+        pl = forced or plan(*valid.shape)
         if forced is not None:
-            nms_cuda.plan = lambda bsz, k, pl=forced: pl
+            nms_cuda.plan = lambda *args, pl=forced: pl
         try:
             untraced = nms_cuda.nms_keep_sorted(boxes, valid, thr, kind)
             torch.cuda.synchronize()
@@ -137,14 +118,14 @@ def counters_phase(dev) -> bool:
             nms_cuda.plan = plan
         want = N.nms_keep_sorted(boxes, valid, thr, kind)
         c = T.read().counters
-        pairs, useful = kernel_work(valid, want)
+        pairs, useful = chip_smoke.k1_work(valid, want, pl.chunk)
         same = torch.equal(untraced, want) and torch.equal(first, want) and torch.equal(traced, want)
         counted = c == {"k1.pairs": 2 * pairs, "k1.useful_pairs": 2 * useful}
         launched = len(kernels(prof))
         others = [k for k in kernels(prof) if "nms_" not in k]
-        ok &= same and counted and launched <= 4 * bands + 1 and len(others) <= 1
-        print(f"[k1] {name}: bands {bands}, masks equal {same}, counters {c} against twice "
-              f"({pairs}, {useful}): {counted}; kernels {launched} for 2 calls (K1's {4 * bands}; "
+        ok &= same and counted and launched <= 3 and len(others) <= 1
+        print(f"[k1] {name}: width {pl.width} chunk {pl.chunk}, masks equal {same}, counters {c} against twice "
+              f"({pairs}, {useful}): {counted}; kernels {launched} for 2 calls (K1's 2; "
               f"others {[k[:60] for k in others]}); "
               f"useful share {100.0 * useful / max(pairs, 1):.3f}%")
     return ok

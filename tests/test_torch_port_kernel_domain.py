@@ -2,16 +2,16 @@
 NMS, csrc/nms.cu) for any number of candidates K, K2 (matching front half,
 csrc/matching.cu) for any number of GT rows G.
 
-- K1's plan (`nms_cuda.plan`): its bands cover every 64-row block once and
-  each row block's column chunks cover every mask word once; the scratch
-  stays within the budget up to (B, K) = (8, 67,200) and (1, 272,000), one
-  band holds K <= 12,288 at B <= 32, and what the kernels cannot take
-  raises before any allocation.
+- K1's launch plan (`nms_cuda.plan`): blocks an image by B and the card's
+  SMs, the shared memory within the block's limit, the overflow list
+  within the scratch budget up to (B, K) = (1, MAX_K), and what the kernel
+  cannot take raising before any allocation.
 - Torch emulations of the new algorithms, held EXACTLY to the plain
-  versions: K1's banded scan, column chunk by column chunk, over one
-  scratch buffer that every band reuses (stale words from the band before
-  stand for garbage), with `removed` carried from band to band and the
-  bands past ceil(n_valid / 64) left out; K2's walk over the GT rows in
+  versions: K1's walk (`tests/test_torch_port_nms.py::_k1_emulation`)
+  under 1 to 16 blocks an image, chunks of 64 to 512 and slices of one or a
+  few kept rows, so that the overflow list holds the rest, with the
+  evaluations it counts equal to chip_smoke.k1_work's closed form; K2's
+  walk over the GT rows in
   chunks, the running best per prior carried across chunks, ties across a
   chunk's edge, an image whose only valid rows lie in a later chunk.
 - The paths that reach the sizes, against the JAX package: the
@@ -45,7 +45,7 @@ from jabd_tpu_torch.ops import matching_cuda
 from jabd_tpu_torch.ops import nms as TN
 from jabd_tpu_torch.ops import nms_cuda
 from tests._torch_port_steps import one_torch_thread  # noqa: F401 (autouse)
-from tests.test_torch_port_nms import CASES, _batch, _flat_boxes, _non_prefix
+from tests.test_torch_port_nms import CASES, _batch, _flat_boxes, _k1_emulation, _non_prefix
 
 WORD = nms_cuda.WORD
 
@@ -58,236 +58,178 @@ PLAN_SIZES = [(1, 1), (8, 5000), (32, 12288), (8, 16800), (2, 67200), (8, 67200)
               (1, 272000), (4, 272000), (1, nms_cuda.MAX_K), (3, 1000)]
 
 
-def _check_plan(bsz, k, pl, budget):
-    nb = -(-k // WORD)
-    assert pl.bands[0][0] == 0 and pl.bands[-1][1] == nb
-    rows = [r for r0, r1 in pl.bands for r in range(r0, r1)]
-    assert rows == list(range(nb))  # every row block once, in order
-    for r0, r1 in pl.bands:
-        assert r1 > r0
-        assert bsz * (r1 - r0) * (nb - r0) * WORD <= pl.mask_words  # the band fits its scratch
-    assert pl.removed_words == bsz * nb and 2 * pl.count_words >= bsz
-    assert pl.scratch_bytes <= budget
-    assert 1 <= pl.chunk <= min(nb, nms_cuda.CHUNK)
-    assert 2 * pl.chunk * WORD * 8 + 8 * nb <= nms_cuda.SCAN_SMEM  # buffers and `removed`
-    for r in {0, nb // 2, nb - 1}:  # each row block's columns r .. nb-1, chunk by chunk
-        cols = [c for c0 in range(r, nb, pl.chunk) for c in range(c0, min(nb, c0 + pl.chunk))]
-        assert cols == list(range(r, nb))
-
-
 @pytest.mark.parametrize("bsz,k", PLAN_SIZES)
-def test_plan_covers_every_block_once_within_the_budget(bsz, k, monkeypatch):
+def test_plan_fits_shared_memory_and_scratch(bsz, k):
+    """The launch fits the card: B * width blocks no more than its SMs
+    (one block an SM, a cooperative launch) unless width is 1, chunks the
+    kernel takes, the shared memory within SMEM with the slice taking what
+    is left, and an overflow list for every candidate past the testers'
+    slices, within the scratch budget with the exchange words."""
     pl = nms_cuda.plan(bsz, k)
-    _check_plan(bsz, k, pl, nms_cuda.SCRATCH_BYTES)
-    # Tight budgets: many bands, each still within the budget.
-    nb = -(-k // WORD)
-    tight = 8 * (bsz * nb + -(-bsz // 2)) + 3 * bsz * nb * WORD * 8
-    monkeypatch.setattr(nms_cuda, "SCRATCH_BYTES", tight)
-    pl = nms_cuda.plan(bsz, k)
-    _check_plan(bsz, k, pl, tight)
-    assert pl.bands[0] == (0, min(nb, 3))  # three row blocks in the first band
+    assert pl.width >= 1 and (pl.width == 1 or bsz * pl.width <= nms_cuda.SMS)
+    assert pl.testers == max(1, pl.width - 1)
+    assert pl.chunk in (64, 128, 256, 512) and pl.chunk >= min(k, nms_cuda.CHUNK)
+    assert pl.smem_bytes <= nms_cuda.SMEM < pl.smem_bytes + nms_cuda.ENTRY_BYTES
+    assert pl.smem_bytes == pl.chunk * pl.chunk // 8 + 16 * (pl.cap + nms_cuda.STAGE) + 40 * pl.chunk
+    assert (pl.chunk * pl.chunk // 8) % 16 == 0  # the float4 arrays after the triangle words stay aligned
+    assert pl.overflow_words == max(0, k - pl.testers * pl.cap)  # every candidate may be kept
+    assert pl.exchange_words == 64 + pl.chunk * pl.chunk // 64
+    assert pl.scratch_bytes == bsz * (8 * pl.exchange_words + 4 * pl.overflow_words) <= nms_cuda.SCRATCH_BYTES
 
 
-@pytest.mark.parametrize("k", [1, 64, 5000, 12288])
-def test_plan_one_band_up_to_12288_at_b32(k):
-    for bsz in range(1, 33):
-        pl = nms_cuda.plan(bsz, k)
-        assert pl.bands == ((0, -(-k // WORD)),), (bsz, k)
-        assert pl.chunk == -(-k // WORD)  # one chunk a row block
+@pytest.mark.parametrize("k", [1, 64, 5000, 67200])
+def test_plan_width_by_batch(k):
+    """width = min(SMs // B, ceil(K / 256)): the card's SMs shared among
+    the images, no more blocks than 256 candidates each."""
+    by_batch = {1: 132, 2: 66, 8: 16, 9: 14, 16: 8, 17: 7, 33: 4, 34: 3, 66: 2, 67: 1, 132: 1, 4096: 1}
+    cap = -(-k // 256)
+    assert {bsz: nms_cuda.plan(bsz, k).width for bsz in by_batch} == {b: min(w, cap) for b, w in by_batch.items()}
+    assert nms_cuda.plan(1, k).chunk == min(512, max(64, 1 << (k - 1).bit_length()))
+
+
+@pytest.mark.parametrize("bsz", [1, 8, 32])
+def test_plan_width_follows_the_card(bsz):
+    """The wrapper passes the card's SM count: a card with fewer SMs gets
+    fewer blocks an image, never more blocks in all than it has SMs."""
+    for sms in (1, 16, 78, 114, 132, 264):
+        pl = nms_cuda.plan(bsz, 67200, sms=sms)
+        assert pl.width == max(1, min(sms // bsz, 263))
+        assert pl.width == 1 or bsz * pl.width <= sms
+        assert pl.overflow_words == max(0, 67200 - pl.testers * pl.cap)
 
 
 def test_plan_at_the_chip_smoke_sizes():
-    """The shapes chip_smoke.py runs: chunks of 192 words, and the band
-    counts the kernel's launches follow; at MAX_K the chunks shrink to
-    MIN_CHUNK words beside 194 KB of removed bits."""
-    assert [len(nms_cuda.plan(b, k).bands) for b, k in
-            ((8, 16800), (2, 67200), (8, 67200), (1, 272000))] == [1, 2, 3, 6]
-    assert nms_cuda.plan(1, 272000).chunk == 192
-    assert nms_cuda.MAX_K == 1_589_248 and nms_cuda.plan(1, nms_cuda.MAX_K).chunk == nms_cuda.MIN_CHUNK
+    """The shapes chip_smoke.py runs: 16 blocks an image at B 8 (15
+    testers), 4 at B 32, the whole card at B 1 and 2; no overflow list up to
+    ~160,000 kept rows an image at B 8; at MAX_K and B 1 the list takes the
+    rest, well under a megabyte."""
+    assert [nms_cuda.plan(b, k).width for b, k in
+            ((8, 5000), (32, 5000), (8, 16800), (2, 67200), (8, 67200), (1, 272000))] == [16, 4, 16, 66, 16, 132]
+    assert all(nms_cuda.plan(b, k).overflow_words == 0 for b, k in ((8, 67200), (32, 5000), (1, 272000)))
+    pl = nms_cuda.plan(1, nms_cuda.MAX_K)
+    assert pl.cap == 10880 and pl.overflow_words == nms_cuda.MAX_K - 131 * pl.cap
+    assert nms_cuda.MAX_K == 1_589_248 and pl.scratch_bytes < 2**20
 
 
 def test_plan_raises_on_what_the_kernels_cannot_take(monkeypatch):
     for k in (nms_cuda.MAX_K + 1, 2**31):
-        with pytest.raises(ValueError, match="shared memory"):
+        with pytest.raises(ValueError, match="K <= 1589248"):
             nms_cuda.plan(1, k)
     with pytest.raises(ValueError, match="scratch budget"):
-        nms_cuda.plan(84, nms_cuda.MAX_K)  # one row block of the batch: 1.07 GB
-    monkeypatch.setattr(nms_cuda, "SCRATCH_BYTES", 2 * 79 * 512)  # room for the bits, not for a row block
+        nms_cuda.plan(200, nms_cuda.MAX_K)  # 200 images, one block each: 1.26 GB of overflow
+    nms_cuda.plan(168, nms_cuda.MAX_K)  # 1.07 GB; the banded kernels' plan raised from B 84
+    monkeypatch.setattr(nms_cuda, "SCRATCH_BYTES", nms_cuda.plan(1, nms_cuda.MAX_K).scratch_bytes - 1)
     with pytest.raises(ValueError, match="scratch budget"):
-        nms_cuda.plan(2, 5000)
+        nms_cuda.plan(1, nms_cuda.MAX_K)
+
+
+class _CardTensor:
+    """Stands for a contiguous, aligned tensor on the card: what the
+    wrapper's checks read, and no storage."""
+
+    device = torch.device("cuda", 0)
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = torch.Size(shape), dtype
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 0
+
+
+def test_wrapper_plans_before_it_allocates(monkeypatch):
+    """On the card the wrapper plans, and so raises past the domain,
+    before it allocates anything."""
+    order = []
+
+    def plan(*args, **kwargs):
+        order.append("plan")
+        raise ValueError("K <= 1589248")
+
+    monkeypatch.setattr(nms_cuda, "plan", plan)
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: order.append("empty"))
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: type("P", (), {"multi_processor_count": 132}))
+    k = nms_cuda.MAX_K + 1
+    with pytest.raises(ValueError, match="K <= 1589248"):
+        nms_cuda._launch(_CardTensor((1, k, 4), torch.float32), _CardTensor((1, k), torch.bool), 0.3, "iou", 1.0)
+    assert order == ["plan"]
 
 
 # ---------------------------------------------------------------------------
-# K1's banded, column-chunked algorithm
+# K1's walk
 # ---------------------------------------------------------------------------
 
-_U64 = (1 << 64) - 1
-
-
-def _words(boxes, valid, thr, kind, beta1):
-    """Per image, the mask words the mask kernel writes for rows i <
-    n_valid: uint64 [n_valid, nb] (bit c of word (i, cb): j = 64 cb + c > i
-    and metric(i, j) > thr; 0 for an invalid row or a column block with no
-    valid box; a disjoint pair skipped when thr >= 0)."""
-    bsz, k = valid.shape
-    nb = -(-k // WORD)
-    boxes_t, valid_t = torch.from_numpy(boxes), torch.from_numpy(valid)
-    areas = (boxes_t[..., 2] - boxes_t[..., 0]) * (boxes_t[..., 3] - boxes_t[..., 1])
-    cols = torch.arange(k)
-    out = []
-    for b in range(bsz):
-        n = int(valid[b].sum())
-        rows = boxes_t[b, :n]
-        metric = TN._metric(rows, boxes_t[b].expand(n, k, 4), areas[b].expand(n, k), kind, beta1)
-        sup = (metric > thr) & (cols[None] > torch.arange(n)[:, None])
-        if thr >= 0:
-            x = torch.clamp(torch.minimum(rows[:, None, 2], boxes_t[b, None, :, 2])
-                            - torch.maximum(rows[:, None, 0], boxes_t[b, None, :, 0]), min=0.0)
-            y = torch.clamp(torch.minimum(rows[:, None, 3], boxes_t[b, None, :, 3])
-                            - torch.maximum(rows[:, None, 1], boxes_t[b, None, :, 1]), min=0.0)
-            sup &= x * y != 0
-        sup &= valid_t[b, :n, None]
-        bits = np.zeros((n, nb * WORD), np.uint64)
-        bits[:, :k] = sup.numpy()
-        words = (bits.reshape(n, nb, WORD) << np.arange(WORD, dtype=np.uint64)).sum(-1, dtype=np.uint64)
-        padded = np.zeros(nb * WORD, bool)
-        padded[:k] = valid[b]
-        words[:, ~padded.reshape(nb, WORD).any(1)] = 0
-        out.append(words)
-    return out
-
-
-def _k1_banded_emulation(boxes, valid, thr, kind, pl, beta1=1.0, seed=0):
-    """`csrc/nms.cu` under the plan `pl` on the CPU: per band [r0, r1), the
-    mask kernel writes word (64 rb + t, cb) at ((b R + rb - r0) W + cb -
-    r0) 64 + t (R = r1 - r0, W = nb - r0) of one scratch buffer for rb in
-    [r0, min(r1, steps)), cb >= rb and rows below n_valid, and leaves every
-    other word as it was (garbage at first, then the band before's words);
-    the scan of an image builds `removed` in the first band, skips a band
-    with r0 >= steps, walks each row block's columns in chunks of
-    pl.chunk words (resolving the diagonal on the first), and writes keep =
-    ~removed in the band that reaches steps; the other bands hand
-    `removed` on."""
-    bsz, k = valid.shape
-    nb = -(-k // WORD)
-    buf = np.random.default_rng(seed).integers(-(2**63), 2**63 - 1, pl.mask_words, dtype=np.int64)
-    buf = buf.view(np.uint64)
-    words = _words(boxes, valid, thr, kind, beta1)
-    counts = {}
-    removed = {}
-    keep = {}
-    for r0, r1 in pl.bands:
-        rows_b, width = r1 - r0, nb - r0
-        for b in range(bsz):  # the mask kernel
-            n = int(valid[b].sum())
-            if r0 == 0:
-                counts[b] = n
-            end = min(r1, -(-counts[b] // WORD))
-            for rb in range(r0, end):
-                live = min(WORD, n - rb * WORD)
-                for cb in range(rb, nb):
-                    at = ((b * rows_b + rb - r0) * width + cb - r0) * WORD
-                    buf[at : at + live] = words[b][rb * WORD : rb * WORD + live, cb]
-        for b in range(bsz):  # the scan
-            n = counts[b]
-            steps = -(-n // WORD)
-            if r0 == 0:
-                rem = []
-                for w in range(nb):
-                    bits = 0
-                    for c in range(WORD):
-                        j = w * WORD + c
-                        if j < k and valid[b, j]:
-                            bits |= 1 << c
-                    rem.append(~bits & _U64)
-                removed[b] = rem
-            elif r0 >= steps:
-                continue
-            rem = removed[b]
-            end = min(r1, steps)
-            for r in range(r0, end):
-                kept = 0
-                for c in range(r, nb, pl.chunk):
-                    ln = min(pl.chunk, nb - c)
-                    at = ((b * rows_b + r - r0) * width + c - r0) * WORD
-                    chunk = [int(x) for x in buf[at : at + ln * WORD]]
-                    if c == r:
-                        live = min(WORD, n - r * WORD)
-                        alive = ~rem[r] & ((1 << live) - 1)
-                        kept = alive
-                        while True:
-                            suppressed = 0
-                            for t in range(WORD):
-                                if (kept >> t) & 1:
-                                    suppressed |= chunk[t]
-                            if alive & ~suppressed == kept:
-                                break
-                            kept = alive & ~suppressed
-                        rem[r] |= suppressed
-                    for w in range(1 if c == r else 0, ln):
-                        for t in range(WORD):
-                            if (kept >> t) & 1:
-                                rem[c + w] |= chunk[w * WORD + t]
-            if end < steps:
-                continue
-            assert b not in keep, "an image's keep mask is written once"
-            keep[b] = [not (rem[i // WORD] >> (i % WORD)) & 1 for i in range(k)]
-    return np.asarray([keep[b] for b in range(bsz)], bool).reshape(bsz, k)
-
-
-def _small_plan(bsz, k, rows=2, chunk=2):
-    """A plan of bands `rows` row blocks deep at first (deeper as the
-    triangle narrows) and column chunks of `chunk` words."""
-    nb = -(-k // WORD)
-    budget = 8 * (bsz * nb + -(-bsz // 2)) + rows * bsz * nb * WORD * 8
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(nms_cuda, "SCRATCH_BYTES", budget)
-        pl = nms_cuda.plan(bsz, k)
-    return pl._replace(chunk=min(chunk, nb))
-
-
-def _plain(boxes, valid, thr, kind, beta1=1.0):
-    return TN.nms_keep_sorted(torch.from_numpy(boxes), torch.from_numpy(valid), thr, kind, beta1).numpy()
+# (width, chunk, cap): one block; 15 testers whose slices hold two kept rows
+# each (the overflow list holds the rest); one tester; chunks of 256 and 512.
+WALKS = [(1, 64, 10_000), (16, 64, 2), (2, 128, 3), (8, 256, 10_000), (4, 512, 5)]
 
 
 @pytest.mark.parametrize("kind", ["iou", "diou"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_banded_kernel_algorithm_equals_plain(rng, case, kind):
+def test_walk_equals_plain(rng, case, kind):
     boxes, valid = _batch(rng, **CASES[case])
-    k = valid.shape[1]
-    for rows, chunk in ((1, 1), (2, 2), (2, 5)):
-        pl = _small_plan(valid.shape[0], k, rows, chunk)
-        assert len(pl.bands) > 1
+    for width, chunk, cap in WALKS:
         for thr in (0.3, 0.45):
-            got = _k1_banded_emulation(boxes, valid, thr, kind, pl)
-            np.testing.assert_array_equal(got, _plain(boxes, valid, thr, kind), err_msg=f"{pl}")
+            got, _ = _k1_emulation(boxes, valid, thr, kind, width=width, chunk=chunk, cap=cap)
+            np.testing.assert_array_equal(got, _plain(boxes, valid, thr, kind), err_msg=f"{(width, chunk, cap)}")
 
 
-BANDED_EXTRA = {
-    # name: (inputs(rng), threshold, kind, beta1, rows, chunk)
-    "non_prefix_valid": (lambda rng: _non_prefix(rng, 2, 200), 0.3, "iou", 1.0, 1, 2),
-    "non_prefix_valid_diou": (lambda rng: _non_prefix(rng, 2, 300), 0.3, "diou", 1.0, 2, 3),
-    "negative_thr_diou": (lambda rng: _flat_boxes(rng, 2, 200), -0.1, "diou", 1.0, 1, 1),
-    "k1": (lambda rng: _batch(rng, 2, 1, [1, 0]), 0.3, "iou", 1.0, 1, 1),
-    "k63": (lambda rng: _batch(rng, 2, 63, [63, 20], ties=True), 0.3, "iou", 1.0, 1, 1),
-    "k64": (lambda rng: _batch(rng, 2, 64, [64, 64], duplicates=True), 0.3, "diou", 1.0, 1, 1),
-    "k65": (lambda rng: _batch(rng, 2, 65, [65, 64]), 0.3, "iou", 1.0, 1, 1),
-    "k1000": (lambda rng: _batch(rng, 2, 1000, [1000, 700]), 0.3, "iou", 1.0, 2, 3),
-    "k1000_ties_diou_beta": (lambda rng: _batch(rng, 2, 1000, [1000, 130], ties=True), 0.45, "diou", 0.6, 3, 4),
-    "k1000_empty_and_one": (lambda rng: _batch(rng, 3, 1000, [0, 1, 999], zero_area=True), 0.3, "iou", 1.0, 2, 2),
+WALK_EXTRA = {
+    # name: (inputs(rng), threshold, kind, beta1, width, chunk, cap)
+    "non_prefix_valid": (lambda rng: _non_prefix(rng, 2, 200), 0.3, "iou", 1.0, 4, 64, 3),
+    "non_prefix_valid_diou": (lambda rng: _non_prefix(rng, 2, 300), 0.3, "diou", 1.0, 2, 128, 1),
+    "negative_thr_diou": (lambda rng: _flat_boxes(rng, 2, 200), -0.1, "diou", 1.0, 16, 64, 1),
+    "k1": (lambda rng: _batch(rng, 2, 1, [1, 0]), 0.3, "iou", 1.0, 16, 64, 1),
+    "k63": (lambda rng: _batch(rng, 2, 63, [63, 20], ties=True), 0.3, "iou", 1.0, 1, 64, 1),
+    "k64": (lambda rng: _batch(rng, 2, 64, [64, 64], duplicates=True), 0.3, "diou", 1.0, 2, 64, 1),
+    "k65": (lambda rng: _batch(rng, 2, 65, [65, 64]), 0.3, "iou", 1.0, 4, 64, 2),
+    "k1000": (lambda rng: _batch(rng, 2, 1000, [1000, 700]), 0.3, "iou", 1.0, 8, 256, 20),
+    "k1000_ties_diou_beta": (lambda rng: _batch(rng, 2, 1000, [1000, 130], ties=True), 0.45, "diou", 0.6,
+                             4, 128, 5),
+    "k1000_empty_and_one": (lambda rng: _batch(rng, 3, 1000, [0, 1, 999], zero_area=True), 0.3, "iou", 1.0,
+                            16, 64, 4),
 }
 
 
-@pytest.mark.parametrize("case", sorted(BANDED_EXTRA))
-def test_banded_kernel_algorithm_equals_plain_edge_cases(rng, case):
-    make, thr, kind, beta1, rows, chunk = BANDED_EXTRA[case]
+@pytest.mark.parametrize("case", sorted(WALK_EXTRA))
+def test_walk_equals_plain_edge_cases(rng, case):
+    make, thr, kind, beta1, width, chunk, cap = WALK_EXTRA[case]
     boxes, valid = make(rng)
-    pl = _small_plan(valid.shape[0], valid.shape[1], rows, chunk)
     want = _plain(boxes, valid, thr, kind, beta1)
-    np.testing.assert_array_equal(_k1_banded_emulation(boxes, valid, thr, kind, pl, beta1), want)
+    got, _ = _k1_emulation(boxes, valid, thr, kind, beta1, width=width, chunk=chunk, cap=cap)
+    np.testing.assert_array_equal(got, want)
     assert not (want & ~valid).any()
-    if valid.shape[1] == 1000:
-        assert len(pl.bands) >= 4
+    if valid.shape[1] == 1000 and valid[0].all():
+        assert want[0].sum() > max(1, width - 1) * cap  # the overflow list was used
+
+
+@pytest.mark.parametrize("case,kind,chunk", [("random", "iou", 64), ("ties", "diou", 128),
+                                             ("invalid_suffix", "iou", 256), ("non_prefix_valid", "diou", 64)])
+def test_walk_counts_what_the_kernel_counts(rng, case, kind, chunk):
+    """The evaluations the walk makes (k1.pairs) are chip_smoke.k1_work's
+    closed form, the same whatever the width and slices; useful pairs
+    (k1.useful_pairs) are no more than those: every (kept i, later valid j)
+    pair is evaluated."""
+    import chip_smoke
+
+    boxes, valid = _non_prefix(rng, 2, 300) if case == "non_prefix_valid" else _batch(rng, **CASES[case])
+    keep = _plain(boxes, valid, 0.3, kind)
+    pairs, useful = chip_smoke.k1_work(torch.from_numpy(valid), torch.from_numpy(keep), chunk)
+    for width, cap in ((1, 10_000), (4, 3), (16, 1)):
+        got, evaluated = _k1_emulation(boxes, valid, 0.3, kind, width=width, chunk=chunk, cap=cap)
+        np.testing.assert_array_equal(got, keep)
+        assert evaluated == pairs
+    prefix = (valid == (np.arange(valid.shape[1]) < valid.sum(1, keepdims=True))).all()
+    assert useful <= pairs or not prefix
+
+
+def _plain(boxes, valid, thr, kind, beta1=1.0):
+    return TN.nms_keep_sorted(torch.from_numpy(boxes), torch.from_numpy(valid), thr, kind, beta1).numpy()
 
 
 @pytest.mark.parametrize("kind", ["iou", "diou"])
@@ -310,16 +252,20 @@ def test_greedy_rule_check_accepts_plain_and_nothing_else(rng, case, kind):
                 assert not chip_smoke.greedy_rule_holds(boxes, valid, bad, thr, kind, rows=7), (b, j, thr)
 
 
-def test_anchor_candidates_cover_every_band():
+def test_anchor_candidates_pass_one_blocks_shared_memory():
     """chip_smoke's K 272,000 load: re152_4level's anchors at 1280x1280,
-    99% valid, so n_valid reaches the last of the plan's 6 bands."""
+    99% valid: more valid rows than one block's slice holds, which the
+    whole card's testers hold at B 1, and which a batch that leaves one
+    block an image carries in the overflow list."""
     import chip_smoke
 
     boxes, valid = chip_smoke.anchor_candidates(272000)
     assert boxes.shape == (1, 272000, 4) and boxes.dtype == torch.float32
     assert bool((boxes[..., 2:] > boxes[..., :2]).all())
-    bands = nms_cuda.plan(1, 272000).bands
-    assert len(bands) == 6 and -(-int(valid.sum()) // WORD) > bands[-1][0]
+    n = int(valid.sum())
+    pl = nms_cuda.plan(1, 272000)
+    assert pl.cap < n <= pl.testers * pl.cap and pl.overflow_words == 0
+    assert nms_cuda.plan(67, 272000).overflow_words >= n - pl.cap
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_past_12288(rng):

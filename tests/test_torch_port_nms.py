@@ -1,10 +1,11 @@
 """PyTorch port, greedy NMS: the plain version (the oracle of the CUDA
 kernel) gives keep masks EQUAL to the JAX package's XLA NMS and to its
 Pallas kernel in interpret mode; the wrapper's CPU dispatch; and a torch
-emulation of the CUDA kernels' algorithm (suppression bitmask, 64-row
-block scan) gives the plain version's keep masks. The CUDA kernels
-themselves are held against the plain version on the card by
-`chip_smoke.py` (these tests import jax, which that machine lacks).
+emulation of the CUDA kernel's algorithm (the walk: each chunk
+tested against the kept rows, its own greedy order resolved 64 rows at a
+time) gives the plain version's keep masks. The CUDA kernel itself is held
+against the plain version on the card by `chip_smoke.py` (these tests
+import jax, which that machine lacks).
 """
 
 import jax
@@ -105,73 +106,124 @@ _WORD = 64
 _U64 = (1 << 64) - 1
 
 
-def _k1_emulation(boxes, valid, thr, kind, beta1=1.0, seed=0):
-    """`csrc/nms.cu`'s algorithm on the CPU. The mask kernel: words
-    mask[b, i, cb] (bit c: j = 64 cb + c > i and metric(i, j) > thr),
-    written only where the kernel writes them (rows i < n_valid, column
-    blocks cb >= i // 64; zeros for an invalid row or a column block with
-    no valid box; pairs with inter == 0 skipped when thr >= 0); every other
-    word is garbage, as torch.empty leaves it. Then the scan: per row block
-    r < ceil(n_valid / 64), its survivors as the fixed point of "the
-    candidates minus what the survivors suppress" over the diagonal words,
-    iterated from all candidates, then the surviving rows' later words ORed
-    into `removed`; keep = ~removed."""
-    boxes_t, valid_t = torch.from_numpy(boxes), torch.from_numpy(valid)
+def _bits(flags) -> int:
+    """The integer whose bit t is flags[t]."""
+    return sum(1 << t for t in np.flatnonzero(flags).tolist())
+
+
+def _suppress_matrix(rows, cols, thr, kind, beta1):
+    """bool [R, C]: metric(row i, column j) > thr as the kernel evaluates
+    it, row i on the `bi` side and column j on the `boxes` side; a pair
+    with inter == 0 skipped when thr >= 0."""
+    r, c = rows.shape[0], cols.shape[0]
+    areas = (cols[:, 2] - cols[:, 0]) * (cols[:, 3] - cols[:, 1])
+    sup = TN._metric(rows, cols.expand(r, c, 4), areas.expand(r, c), kind, beta1) > thr
+    if thr >= 0:  # the kernel's early-out: a disjoint pair never suppresses
+        x = torch.clamp(torch.minimum(rows[:, None, 2], cols[None, :, 2])
+                        - torch.maximum(rows[:, None, 0], cols[None, :, 0]), min=0.0)
+        y = torch.clamp(torch.minimum(rows[:, None, 3], cols[None, :, 3])
+                        - torch.maximum(rows[:, None, 1], cols[None, :, 1]), min=0.0)
+        sup &= x * y != 0
+    return sup.numpy()
+
+
+def _k1_emulation(boxes, valid, thr, kind, beta1=1.0, width=None, chunk=None, cap=None, seed=0):
+    """`csrc/nms.cu`'s walk on the CPU, under nms_cuda.plan's width, chunk
+    and cap unless given; with width > 1 block 0 resolves and the other
+    blocks test (testers = width - 1), with width 1 the one block does both.
+    Per image: n_valid and end (the last valid index + 1); the chunks
+    [s, s + chunk) below end, a chunk with no valid candidate skipped. Per
+    chunk, each tester tests the chunk's valid candidates against its slice
+    of the kept list (its shared memory, `min(mine, cap)` rows, then its
+    overflow positions trank, trank + testers, ...: every row kept before
+    the chunk, some before the last chunk's survivors are appended and the
+    rest after, an OR either way) and ORs the suppressed bits; builds the
+    triangle words of its rows (r % testers == trank, valid, below n_valid;
+    words q >= r // 64 only) into block 0's buffer, whose other words are
+    garbage, then stale words of earlier chunks; block 0 resolves 64 rows
+    at a time: the survivors of the earlier 64-row blocks' words pulled in,
+    then the fixed point over the diagonal words of the alive rows,
+    iterated from all of them; keep = not removed; the survivors are
+    appended by rank g = their order among the kept rows, tester g %
+    testers, slot g // testers while g < testers * cap, else overflow
+    position g - testers * cap. Returns (keep [B, K] bool, the metric
+    evaluations the kernel makes)."""
+    boxes_t = torch.from_numpy(boxes)
     bsz, k = valid.shape
-    nb = -(-k // _WORD)
-    garbage = np.random.default_rng(seed).integers(-(2**63), 2**63 - 1, (bsz, k, nb), dtype=np.int64)
-    mask = torch.from_numpy(garbage)
-    areas = (boxes_t[..., 2] - boxes_t[..., 0]) * (boxes_t[..., 3] - boxes_t[..., 1])
-    bits = torch.bitwise_left_shift(torch.ones(_WORD, dtype=torch.int64), torch.arange(_WORD))
-    cols = torch.arange(k)
+    pl = nms_cuda.plan(bsz, k)
+    width, chunk, cap = width or pl.width, chunk or pl.chunk, pl.cap if cap is None else cap
+    testers = max(1, width - 1)
+    nw = chunk // _WORD
+    garbage = np.random.default_rng(seed).integers(-(2**63), 2**63 - 1, (chunk, nw), dtype=np.int64)
+    tri = [[int(x) & _U64 for x in row] for row in garbage]
     keep = np.zeros((bsz, k), bool)
+    pairs = 0
     for b in range(bsz):
-        n = int(valid[b].sum())
-        if n:
-            rows = boxes_t[b, :n]
-            metric = TN._metric(rows, boxes_t[b].expand(n, k, 4), areas[b].expand(n, k), kind, beta1)
-            sup = (metric > thr) & (cols[None] > torch.arange(n)[:, None])
-            if thr >= 0:  # the kernel's early-out: a disjoint pair never suppresses
-                x = torch.clamp(torch.minimum(rows[:, None, 2], boxes_t[b, None, :, 2])
-                                - torch.maximum(rows[:, None, 0], boxes_t[b, None, :, 0]), min=0.0)
-                y = torch.clamp(torch.minimum(rows[:, None, 3], boxes_t[b, None, :, 3])
-                                - torch.maximum(rows[:, None, 1], boxes_t[b, None, :, 1]), min=0.0)
-                sup &= x * y != 0
-            sup &= valid_t[b, :n, None]  # an invalid row's word is zero
-            for cb in range(nb):
-                lo, hi = cb * _WORD, min(k, (cb + 1) * _WORD)
-                words = (sup[:, lo:hi].long() * bits[: hi - lo]).sum(1)  # distinct bits: sum == OR
-                if not valid[b, lo:hi].any():
-                    words = torch.zeros_like(words)
-                upper = torch.arange(n) // _WORD <= cb
-                mask[b, :n][upper, cb] = words[upper]
-        words = mask[b].numpy()
-        removed = [_U64] * nb
-        for w in range(nb):
-            for c in range(_WORD):
-                if w * _WORD + c < k and valid[b, w * _WORD + c]:
-                    removed[w] &= ~(1 << c)
-        for r in range(-(-n // _WORD)):
-            live = min(_WORD, n - r * _WORD)
-            alive = ~removed[r] & ((1 << live) - 1)
-            diag = [int(words[r * _WORD + t, r]) & _U64 for t in range(live)]
-            kept = alive
-            while True:  # survivors = alive minus what the survivors suppress
-                suppressed = 0
-                for t in range(live):
-                    if (kept >> t) & 1:
-                        suppressed |= diag[t]
-                if alive & ~suppressed == kept:
-                    break
-                kept = alive & ~suppressed
-            removed[r] |= suppressed
-            for w in range(r + 1, nb):
-                for t in range(_WORD):
-                    if (kept >> t) & 1:
-                        removed[w] |= int(words[r * _WORD + t, w]) & _U64
-        for i in range(k):
-            keep[b, i] = not (removed[i // _WORD] >> (i % _WORD)) & 1
-    return keep
+        bx = boxes_t[b]
+        n_valid = int(valid[b].sum())
+        end = int(np.flatnonzero(valid[b])[-1]) + 1 if n_valid else 0
+        walk_end = min(k, -(-end // chunk) * chunk)
+        slices = [[] for _ in range(testers)]  # each tester's shared memory, slot by slot
+        overflow = {}  # position -> candidate index
+        total = 0
+        for s in range(0, walk_end, chunk):
+            ln = min(chunk, k - s)
+            cvalid = np.zeros(chunk, bool)
+            cvalid[:ln] = valid[b, s : s + ln]
+            if not cvalid.any():
+                continue
+            cols = bx[s : s + ln]
+            own = _suppress_matrix(cols, cols, thr, kind, beta1)  # the chunk's pairs
+            sup = 0
+            for trank in range(testers):
+                mine = -(-(total - trank) // testers) if total > trank else 0
+                assert len(slices[trank]) == min(mine, cap)
+                entries = list(slices[trank])
+                ov_total = total - testers * cap
+                if ov_total > trank:
+                    entries += [overflow[trank + n * testers] for n in range(-(-(ov_total - trank) // testers))]
+                if entries:
+                    hit = _suppress_matrix(bx[entries], cols, thr, kind, beta1).any(0) & cvalid[:ln]
+                    sup |= _bits(hit)
+                    pairs += len(entries) * int(cvalid.sum())
+                for r in range(trank, ln, testers):
+                    if s + r >= n_valid or not cvalid[r]:
+                        continue
+                    live = cvalid[:ln] & (np.arange(ln) > r)
+                    pairs += int(live.sum())
+                    row = _bits(own[r] & live)
+                    for q in range(r // _WORD, nw):
+                        tri[r][q] = (row >> (_WORD * q)) & _U64
+            rem = [((~_bits(cvalid) | sup) >> (_WORD * q)) & _U64 for q in range(nw)]
+            kept_words = []
+            for q in range(nw):
+                for q1 in range(q):  # the earlier blocks' survivors
+                    for t in range(_WORD):
+                        if (kept_words[q1] >> t) & 1:
+                            rem[q] |= tri[_WORD * q1 + t][q]
+                live = min(_WORD, max(0, n_valid - (s + _WORD * q)))
+                alive = ~rem[q] & ((1 << live) - 1)
+                kept = alive
+                while True:  # survivors = alive minus what the survivors suppress
+                    suppressed = 0
+                    for t in range(_WORD):
+                        if (kept >> t) & 1:
+                            suppressed |= tri[_WORD * q + t][q]
+                    if alive & ~suppressed == kept:
+                        break
+                    kept = alive & ~suppressed
+                rem[q] |= suppressed
+                kept_words.append(kept)
+            for t in range(ln):
+                keep[b, s + t] = not (rem[t // _WORD] >> (t % _WORD)) & 1
+            for t in range(ln):
+                if (kept_words[t // _WORD] >> (t % _WORD)) & 1:
+                    g, total = total, total + 1
+                    if g // testers < cap:
+                        slices[g % testers].append(s + t)
+                    else:
+                        overflow[g - testers * cap] = s + t
+    return keep, pairs
 
 
 def _non_prefix(rng, bsz, k):
@@ -203,13 +255,19 @@ EMULATION_EXTRA = {
 }
 
 
+# The plan's launch (one chunk up to K 256), and chunks of 64 over four
+# blocks holding 5 kept rows each, the rest in the overflow list.
+_WALKS = ({}, dict(width=4, chunk=64, cap=5))
+
+
 @pytest.mark.parametrize("kind", ["iou", "diou"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_algorithm_equals_plain(rng, case, kind):
     boxes, valid = _batch(rng, **CASES[case])
     for thr in (0.3, 0.45):
         want = _plain(boxes, valid, thr, kind)
-        np.testing.assert_array_equal(_k1_emulation(boxes, valid, thr, kind), want)
+        for walk in _WALKS:
+            np.testing.assert_array_equal(_k1_emulation(boxes, valid, thr, kind, **walk)[0], want, err_msg=f"{walk}")
 
 
 @pytest.mark.parametrize("case", sorted(EMULATION_EXTRA))
@@ -220,7 +278,9 @@ def test_kernel_algorithm_equals_plain_edge_cases(rng, case):
         want = TN.nms_keep_sorted(
             torch.from_numpy(boxes), torch.from_numpy(valid), thr, kind, beta1
         ).numpy()
-        np.testing.assert_array_equal(_k1_emulation(boxes, valid, thr, kind, beta1), want)
+        for walk in _WALKS:
+            np.testing.assert_array_equal(_k1_emulation(boxes, valid, thr, kind, beta1, **walk)[0], want,
+                                          err_msg=f"{walk}")
         assert not (want & ~valid).any()
 
 
