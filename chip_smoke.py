@@ -1255,14 +1255,19 @@ class RepeatedDataset:
         return self.ds.get(index % len(self.ds), rng)
 
 
-def copies_on_compute_stream(iterator, device, depth: int = 2):
-    """prefetch_to_device's earlier design, for comparison: the same pinned,
-    non-blocking copies, issued on the current (compute) stream."""
-    from jabd_tpu_torch import train as T
+def copies_on_compute_stream(iterator, device, depth: int = 2, mesh=None, chunks: int = 1):
+    """prefetch_to_device's earlier design, for comparison, under its
+    signature (`fit` calls either): the same pinned, non-blocking copies,
+    issued on the current (compute) stream, of this process's rows over a
+    process mesh of size > 1."""
+    from jabd_tpu_torch import step as ST
+    from jabd_tpu_torch.parallel import mesh as M
 
+    if M.is_sharded(mesh):
+        iterator = (M.shard_batch(b, mesh, chunks) for b in iterator)
     queue = collections.deque()
     for batch in iterator:
-        queue.append(T._to_device(batch, torch.device(device), []))
+        queue.append(ST._to_device(batch, torch.device(device), []))
         if len(queue) >= depth:
             yield queue.popleft()
     while queue:
@@ -1285,18 +1290,18 @@ def fed_steps(name, cpu_batch, run_step, dev, resident_ms: float, card: str) -> 
     copies_on_compute_stream (C) and prefetch_to_device (S), 8 steps a
     turn, in turns C S S C C S, beside the step on a batch resident on the
     card; check that the batch arrives intact."""
-    from jabd_tpu_torch import train as T
+    from jabd_tpu_torch import step as ST
 
-    moved = next(T.prefetch_to_device(iter([cpu_batch]), dev))
+    moved = next(ST.prefetch_to_device(iter([cpu_batch]), dev))
     check(torch.equal(moved[0].cpu(), cpu_batch[0]), f"prefetch_to_device {name}: the batch arrives")
     del moved
-    feeds = {"compute": copies_on_compute_stream, "side": T.prefetch_to_device}
+    feeds = {"compute": copies_on_compute_stream, "side": ST.prefetch_to_device}
     for feed in feeds.values():  # warm-up: pinned buffers, allocator
         fed_step_ms(feed, cpu_batch, run_step, dev, n=2)
     turns = {k: [] for k in feeds}
     for k in ("compute", "side", "side", "compute", "compute", "side"):
         turns[k].append(fed_step_ms(feeds[k], cpu_batch, run_step, dev, n=8))
-    copy_ms = cuda_ms(lambda: T._to_device(cpu_batch, torch.device(dev), []), iters=5)
+    copy_ms = cuda_ms(lambda: ST._to_device(cpu_batch, torch.device(dev), []), iters=5)
     mb = sum(t.numel() * t.element_size() for t in cpu_batch if isinstance(t, torch.Tensor)) / 1e6
     print(f"[augment] fed steps {name} ({mb:.1f} MB a batch; pin + copy alone {copy_ms:.3f} ms events): "
           f"ms/step over 8 steps in turns C S S C C S, copies on the compute stream (C) "
@@ -1323,6 +1328,7 @@ def augment_phase(card, dev, preset):
     import tempfile
 
     from jabd_tpu_torch import configs
+    from jabd_tpu_torch import step as ST
     from jabd_tpu_torch import train as T
     from jabd_tpu_torch.data import device_augment as DA
     from jabd_tpu_torch.data.wider import augment_sample, batch_targets, draw_augment_params, sample_rng
@@ -1507,7 +1513,7 @@ def augment_phase(card, dev, preset):
 
         def fit_epoch_s(feed, **kw):
             fcfg = dataclasses.replace(tcfg, freeze_epochs=0, total_epochs=1, **kw)
-            prefetch, T.prefetch_to_device = T.prefetch_to_device, feed
+            prefetch, ST.prefetch_to_device = ST.prefetch_to_device, feed
             try:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1515,13 +1521,13 @@ def augment_phase(card, dev, preset):
                 torch.cuda.synchronize()
                 return time.perf_counter() - t0
             finally:
-                T.prefetch_to_device = prefetch
+                ST.prefetch_to_device = prefetch
 
-        feeds = {"compute": copies_on_compute_stream, "side": T.prefetch_to_device}
+        feeds = {"compute": copies_on_compute_stream, "side": ST.prefetch_to_device}
         turns = {k: [] for k in feeds}
         for k in ("compute", "side", "side", "compute"):
             turns[k].append(fit_epoch_s(feeds[k], device_augment=True))
-        host_s = fit_epoch_s(T.prefetch_to_device)
+        host_s = fit_epoch_s(ST.prefetch_to_device)
     n_steps = len(rep) // bsz
     print(f"[augment] fit, one epoch of {n_steps} steps ({len(rep)} images), s/epoch (host clock, the "
           f"loader's first two batches included): device loader in turns C S S C, copies on the compute "
@@ -1996,8 +2002,8 @@ def presets_phase(card, dev):
     import dataclasses
 
     from jabd_tpu_torch import configs
+    from jabd_tpu_torch import step as ST
     from jabd_tpu_torch.data.wider import batch_targets
-    from jabd_tpu_torch.models import retinaface as RF
     from jabd_tpu_torch.ops import anchors as A
     from jabd_tpu_torch.ops import matching as M
     from jabd_tpu_torch.ops import matching_cuda
@@ -2079,7 +2085,7 @@ def presets_phase(card, dev):
         check(abs(shares[-1] - 0.5) <= 0.01, f"{name} tap {i + 1}: drop share within 0.5 +- 0.01")
         check(torch.equal(seen[i][kept], 2.0 * raw[i][kept]) and not bool(kept[~live].any()),
               f"{name} tap {i + 1}: kept values scaled by 2")
-    print(f"[presets] (d) {name} bf16 bs8 train step (dropout stream {RF.dropout_seed(dcfg.seed, 0)}): loss "
+    print(f"[presets] (d) {name} bf16 bs8 train step (dropout stream {ST.dropout_seed(dcfg.seed, 0)}): loss "
           f"{float(metrics['loss']):.4f}, tap drop shares {[round(s, 5) for s in shares]}, kept values x2")
     del state, model, seen, raw
     torch.cuda.empty_cache()

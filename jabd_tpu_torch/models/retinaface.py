@@ -67,13 +67,6 @@ def tap_dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator])
     return torch.where(dropout_keep(x, p, generator), x / (1.0 - p), 0.0)
 
 
-def dropout_seed(seed: int, step: int) -> int:
-    """The dropout stream of train step `step` under `TrainConfig.seed`,
-    one per (seed, step) as the JAX package's fold_in(PRNGKey(seed), step)
-    (whose draws torch cannot reproduce)."""
-    return (seed << 32) + step
-
-
 class RetinaFace(nn.Module):
     """mode 'train' returns raw class logits; 'eval' their softmax."""
 
@@ -125,7 +118,7 @@ class RetinaFace(nn.Module):
         """remat (training) checkpoints the graph in segments, each
         recomputed in backward on its own: the stem and every backbone
         block, the FPN, each level's SSH. `generator` draws the tap
-        dropout's masks in train mode (`dropout_seed`)."""
+        dropout's masks in train mode (`step.dropout_seed`)."""
         cfg = self.cfg
         # The heads' dtype is the model's: they stay floating point when
         # int8 quantization (models/quantize.py) replaces a ConvBN's conv.

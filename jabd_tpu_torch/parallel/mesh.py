@@ -234,15 +234,6 @@ def _flatten(tree) -> list:
     return out
 
 
-def prefetch_to_device(iterator, mesh: Mesh, depth: int = 2, chunks: int = 1):
-    """`train.prefetch_to_device` over a process mesh: each global batch is
-    cut to this process's rows (`shard_batch`, `chunks` for microbatches)
-    before its pinned non-blocking copy to the mesh's device."""
-    from jabd_tpu_torch.train import prefetch_to_device as _prefetch
-
-    return _prefetch((shard_batch(b, mesh, chunks) for b in iterator), mesh.device, depth)
-
-
 # ---------------------------------------------------------------------------
 # Collectives
 # ---------------------------------------------------------------------------

@@ -36,7 +36,6 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
-from jabd_tpu_torch.models.retinaface import dropout_seed
 from jabd_tpu_torch.parallel import fsdp as FS
 from jabd_tpu_torch.parallel import mesh as M
 from jabd_tpu_torch.recognition import train as RT
@@ -106,6 +105,13 @@ class ShardedRecTrainState(RT.RecTrainState):
 
     mesh: Optional[M.Mesh] = None
 
+    def head_loss(self, emb: torch.Tensor, norm: torch.Tensor, labels: torch.Tensor):
+        """`sharded_loss` of this rank's rows: every rank backpropagates
+        loss / N (parallel/mesh.py's rule); the metrics are the global
+        batch's."""
+        loss, acc = sharded_loss(self.head, emb, norm, labels, self.mesh)
+        return loss / self.mesh.size, lambda: {"loss": loss.detach(), "acc": acc}
+
     def _full(self, p, t):
         if p is self.head.kernel:
             return M.all_gather(t.t().contiguous(), self.mesh).t().contiguous()
@@ -164,8 +170,11 @@ def make_sharded_train_step(state: RT.RecTrainState, mesh: M.Mesh, fsdp: bool = 
     sharded along classes. Returns (step, placed state); step(state,
     images [b, S, S, 3], labels [b]) takes this rank's rows of the global
     batch (`parallel.mesh.shard_batch`) and returns the global batch's
-    metrics. A mesh of size 1 is the plain step and state."""
-    return _make(state, mesh, fsdp, compute_dtype, seed, augment=False)
+    metrics: `recognition.train.make_train_step`'s step over the placed
+    state (`ShardedRecTrainState.head_loss`). A mesh of size 1 is the
+    plain step and state."""
+    placed = place_state(state, mesh, fsdp) if M.is_sharded(mesh) else state
+    return RT.make_train_step(1, compute_dtype, seed), placed
 
 
 def make_sharded_train_step_aug(state: RT.RecTrainState, mesh: M.Mesh, fsdp: bool = False,
@@ -173,42 +182,5 @@ def make_sharded_train_step_aug(state: RT.RecTrainState, mesh: M.Mesh, fsdp: boo
                                 resample_dtype: torch.dtype = torch.bfloat16):
     """The device-augmented twin: step(state, images_u8, plan, labels),
     each rank augmenting its own rows first."""
-    return _make(state, mesh, fsdp, compute_dtype, seed, augment=True, resample_dtype=resample_dtype)
-
-
-def _make(state, mesh, fsdp, compute_dtype, seed, augment, resample_dtype=torch.bfloat16):
-    if not M.is_sharded(mesh):
-        maker = RT.make_train_step_aug if augment else RT.make_train_step
-        kw = {"resample_dtype": resample_dtype} if augment else {}
-        return maker(1, compute_dtype, seed, **kw), state
-    bf16 = compute_dtype == "bfloat16"
-    placed = place_state(state, mesh, fsdp)
-
-    def run(state: ShardedRecTrainState, images, labels):
-        state.model.train()
-        state.head.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        x = images.permute(0, 3, 1, 2)
-        generator = None
-        if state.model.dropout > 0.0:
-            stream = state.step * mesh.size + mesh.rank
-            generator = torch.Generator(x.device).manual_seed(dropout_seed(seed, stream))
-        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-            emb, norm = state.model(x, generator=generator)
-        loss, acc = sharded_loss(state.head, emb, norm, labels, mesh)
-        (loss / mesh.size).backward()
-        M.all_reduce_grads(FS.replicated_parameters(state.model), mesh)
-        state.apply_gradients()
-        return state, {"loss": loss.detach(), "acc": acc}
-
-    if not augment:
-        return run, placed
-
-    from jabd_tpu_torch.recognition.device_augment import device_augment_faces
-
-    def aug_step(state, images_u8, plan, labels):
-        with torch.no_grad():
-            images = device_augment_faces(images_u8, plan, resample_dtype)
-        return run(state, images, labels)
-
-    return aug_step, placed
+    placed = place_state(state, mesh, fsdp) if M.is_sharded(mesh) else state
+    return RT.make_train_step_aug(1, compute_dtype, seed, resample_dtype), placed

@@ -19,8 +19,8 @@ Port of `jabd_tpu/recognition/train.py`, the reference's recipe
 The step runs eagerly and updates the state in place, the backbone and
 the head in training mode: BatchNorm statistics with flax's running
 variance, AdaFace's norm EMA, dropout from a torch.Generator seeded per
-(seed, step, microbatch chunk) (`models/retinaface.dropout_seed`: the
-same draws on every resume, not the JAX package's). With
+(seed, step, microbatch chunk) (`step.dropout_seed`: the same draws on
+every resume, not the JAX package's). With
 compute_dtype "bfloat16" (`--precision 16`) the backbone runs under
 torch.autocast while its parameters, the head and the loss stay float32.
 Every batch of an extraction, the tail included, is padded to
@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from jabd_tpu_torch import resolve_device
-from jabd_tpu_torch.models.retinaface import dropout_seed
+from jabd_tpu_torch import step as ST
 from jabd_tpu_torch.parallel import mesh as M
 from jabd_tpu_torch.recognition import identification as ID
 from jabd_tpu_torch.recognition import verification as V
@@ -90,6 +90,9 @@ class RecTrainState:
     milestones: Tuple[int, ...]
     gamma: float = 0.1
     step: int = 0
+    # The process mesh the step reduces over: a field of the class-sharded
+    # state (recognition/parallel.ShardedRecTrainState); none here.
+    mesh = None
 
     def named_parameters(self):
         return [(f"model.{n}", p) for n, p in self.model.named_parameters()] + [
@@ -98,6 +101,14 @@ class RecTrainState:
 
     def lr_at(self, count: int) -> float:
         return self.lr * self.gamma ** sum(1 for m in self.milestones if m <= count)
+
+    def head_loss(self, emb: torch.Tensor, norm: torch.Tensor, labels: torch.Tensor):
+        """A step's head phase: (the cross-entropy of the margin logits,
+        a call giving the metrics once backward has run). The head stays
+        float32 (outside autocast) under bf16."""
+        logits = self.head(emb.float(), norm.float(), labels)
+        loss = F.cross_entropy(logits, labels.long())
+        return loss, lambda: {"loss": loss.detach(), "acc": (logits.detach().argmax(-1) == labels).float().mean()}
 
     def apply_gradients(self) -> None:
         """One SGD update with the gradients in `.grad`, at the lr of the
@@ -153,21 +164,19 @@ def create_state(
 def make_train_step(microbatches: int = 1, compute_dtype: str = "float32", seed: int = 0):
     """step(state, images [B, S, S, 3] float32, labels [B] int) -> (state,
     metrics {"loss", "acc"} as 0-d device tensors): train-mode forward,
-    the head on float32 embeddings, cross-entropy, backward, one SGD
-    update. Images and labels lie on the model's device.
+    `state.head_loss` (the margin head on float32 embeddings and
+    cross-entropy), backward, one SGD update (`step.run_step`). Images and
+    labels lie on the model's device. Over a `ShardedRecTrainState`
+    (recognition/parallel.py) they are this rank's rows and the step is
+    the class-sharded one, over the state's mesh.
 
-    `microbatches` > 1 (accumulate_grad_batches, main.py:40-50): the batch
-    splits into that many chunks, each with its own forward and backward;
-    BatchNorm normalizes per chunk (ghost BN) and its statistics carry from
-    chunk to chunk, as does AdaFace's norm EMA; the summed gradients are
-    divided by the count before one update; metrics are the chunks' means.
-    Raises ValueError when the batch does not divide.
+    `microbatches` > 1 (accumulate_grad_batches, main.py:40-50): each
+    chunk has its own forward and backward; BatchNorm normalizes per chunk
+    (ghost BN) and AdaFace's norm EMA carries from chunk to chunk. Raises
+    ValueError when the batch does not divide.
 
-    Each step opens a `jabd.rectrain.step` span holding, per chunk,
-    `.forward` (the backbone), `.head` (margin head and cross-entropy) and
-    `.backward`, then `.optimizer` (the update); the four time the card's
-    stream (utils/tracing.py: recorded only while a torch profiler
-    records)."""
+    Each step opens a `jabd.rectrain.step` span (`step.run_step`; the loss
+    phase `jabd.rectrain.head`)."""
     return _make_step(microbatches, compute_dtype, seed, augment=None)
 
 
@@ -189,49 +198,16 @@ def make_train_step_aug(
 
 
 def _make_step(microbatches: int, compute_dtype: str, seed: int, augment):
-    bf16 = compute_dtype == "bfloat16"
-    mb = max(microbatches, 1)
-
-    def chunk_backward(state: RecTrainState, images, labels, stream: int):
-        dev = images.device
-        with T.span("jabd.rectrain.forward", dev):
-            x = images.permute(0, 3, 1, 2)
-            generator = None
-            if state.model.dropout > 0.0:
-                generator = torch.Generator(x.device).manual_seed(dropout_seed(seed, stream))
-            with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-                emb, norm = state.model(x, generator=generator)
-        with T.span("jabd.rectrain.head", dev):
-            # The margin head stays float32 (outside autocast) under bf16.
-            logits = state.head(emb.float(), norm.float(), labels)
-            loss = F.cross_entropy(logits, labels.long())
-        with T.span("jabd.rectrain.backward", dev):
-            loss.backward()  # adds into .grad
-        acc = (logits.detach().argmax(-1) == labels).float().mean()
-        return loss.detach(), acc
-
     def run(state: RecTrainState, make_images, labels):
-        b = labels.shape[0]
-        if b % mb:
-            raise ValueError(f"batch {b} not divisible by microbatches={mb}")
-        with T.span("jabd.rectrain.step"):
-            state.model.train()
-            state.head.train()
-            state.optimizer.zero_grad(set_to_none=True)
-            n = b // mb
-            chunks = []
-            for i in range(mb):
-                part = slice(i * n, (i + 1) * n)
-                # A dropout stream per chunk: step * mb + i.
-                chunks.append(chunk_backward(state, make_images(part), labels[part], state.step * mb + i))
-            with T.span("jabd.rectrain.optimizer", labels.device):
-                if mb > 1:
-                    for _, p in state.named_parameters():
-                        if p.grad is not None:
-                            p.grad.div_(mb)
-                loss, acc = (torch.stack(m).mean() for m in zip(*chunks))
-                state.apply_gradients()
-        return state, {"loss": loss, "acc": acc}
+        state.model.train()
+        state.head.train()
+        metrics = ST.run_step(
+            state, make_images, labels.shape[0], lambda x, generator: state.model(x, generator=generator),
+            lambda out, part: state.head_loss(*out, labels[part]), prefix="jabd.rectrain", loss_phase="head",
+            microbatches=microbatches, mesh=state.mesh, bf16=compute_dtype == "bfloat16",
+            seed=seed, dropout=state.model.dropout > 0.0,
+        )
+        return state, metrics
 
     if augment is None:
 
@@ -268,7 +244,7 @@ def fit(
     `device` (the card unless given): epochs of batches from
     `data.recognition_train_loader` or, with `device_augment`,
     `device_augment.device_face_train_loader`, copied ahead through
-    `train.prefetch_to_device`; the host waits for the loss of the step
+    `step.prefetch_to_device`; the host waits for the loss of the step
     MAX_IN_FLIGHT back, so it never runs further ahead. Per epoch:
     flip-TTA validation on the sets under `val_dir`, a checkpoint
     (`utils/checkpoint.CheckpointManager`, optimizer included) every
@@ -282,7 +258,6 @@ def fit(
     same global batches and keeps its rows; every rank validates (an FSDP
     backbone's forward needs them all), rank 0 alone logs and writes the
     files, the checkpoints in the single-process layout."""
-    from jabd_tpu_torch.train import prefetch_to_device
     from jabd_tpu_torch.utils.checkpoint import CheckpointManager
 
     dev = resolve_device(device)
@@ -326,8 +301,7 @@ def fit(
             tuple(torch.from_numpy(x) if isinstance(x, np.ndarray) else x for x in batch)
             for batch in loader(ds, batch_size, seed=seed + epoch)
         )
-        fed = M.prefetch_to_device(batches, mesh, 2) if sharded else prefetch_to_device(batches, dev, depth=2)
-        for batch in fed:
+        for batch in ST.prefetch_to_device(batches, dev, 2, mesh=mesh):
             state, m = step_fn(state, *batch)
             losses.append(m["loss"])
             accs.append(m["acc"])
@@ -349,26 +323,15 @@ def fit(
                 f.write(f"{epoch},{state.step},{loss:.6f},{acc:.6f},"
                         f"{'' if val_acc is None else f'{val_acc:.6f}'}\n")
         if mgr and (epoch % save_period == 0 or epoch == epochs):
-            _save(mgr, epoch, state, mesh)
+            ST.save_checkpoint(mgr, epoch, state, mesh)
         if best_mgr and val_acc is not None and val_acc > best_acc:
             best_acc = val_acc
-            _save(best_mgr, epoch, state, mesh)
+            ST.save_checkpoint(best_mgr, epoch, state, mesh)
             if lead:
                 with open(best_meta_path, "w") as f:
                     json.dump({"epoch": epoch, "val_acc": val_acc}, f)
             say(f"new best val_acc {val_acc:.4f} at epoch {epoch}")
     return state
-
-
-def _save(mgr, step: int, state, mesh: Optional[M.Mesh]) -> None:
-    """Checkpoint `state` as step `step`: gathered on every rank (a
-    collective under a sharded state), written by rank 0."""
-    from jabd_tpu_torch.train import _Payload
-
-    payload = state.state_dict()
-    if mesh is None or mesh.rank == 0:
-        mgr.save(step, _Payload(payload))
-    M.barrier(mesh)
 
 
 def extract_embeddings_tta(

@@ -34,7 +34,6 @@ their Adam moments, are sharded by FSDP2 (parallel/fsdp.py).
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import os
 import time
@@ -44,9 +43,9 @@ import numpy as np
 import torch
 
 from jabd_tpu_torch import configs, losses, resolve_device
+from jabd_tpu_torch import step as ST
 from jabd_tpu_torch.models import build_model
 from jabd_tpu_torch.models.init import reference_weights_init
-from jabd_tpu_torch.models.retinaface import dropout_seed
 from jabd_tpu_torch.ops import anchors as A
 from jabd_tpu_torch.parallel import fsdp as FS
 from jabd_tpu_torch.parallel import mesh as M
@@ -209,14 +208,14 @@ def _restore_batchnorm_stats(saved) -> None:
 def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConfig, mesh: Optional[M.Mesh] = None):
     """step(state, images [B, H, W, 3] float32, targets, anchors [P, 4])
     -> (state, metrics): train-mode forward -> multibox_loss ->
-    total_loss -> backward -> Adam update. Images, targets and anchors lie
-    on the model's device. Metrics are 0-d device tensors: loss, loss_l,
-    loss_c, loss_landm. The gradients stay in the parameters' `.grad`
-    until the next step.
+    total_loss -> backward -> Adam update (`step.run_step`). Images,
+    targets and anchors lie on the model's device. Metrics are 0-d device
+    tensors: loss, loss_l, loss_c, loss_landm.
 
     With `device_augment` the step is step(state, images_u8 [B, bh, bw, 3]
     uint8, plan, targets, anchors): `data/device_augment.device_augment`
-    (bf16 resample, no gradient) makes the frames on the device first.
+    (bf16 resample, no gradient) makes each chunk's frames on the device
+    first.
 
     `remat` runs the forward in checkpointed segments (`RetinaFace.forward`:
     each backbone block, the FPN, each SSH; non-reentrant
@@ -227,20 +226,14 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
     every activation before the backward walks them, and save no memory.
     The recompute runs the train-mode forward again, which would update
     the BatchNorm running statistics a second time; the step keeps the
-    statistics of the first forward (copied after it, put back after
-    backward), as jax.checkpoint updates them once.
+    statistics of the first forward (copied after it, put back when the
+    chunk's metrics are taken, right after backward), as jax.checkpoint
+    updates them once.
 
-    `microbatches` > 1 (ghost BatchNorm, jabd_tpu/train.py:201-258): the
-    batch is split into that many chunks, each with its own forward, loss
-    (normalized by its own positives) and backward; the BatchNorm
-    statistics carry from chunk to chunk; the summed gradients are divided
-    by the count before one Adam update; metrics are the chunks' means.
-    With device augmentation each chunk augments its own slice.
-
-    With `tap_dropout` each chunk draws its masks from a torch.Generator
-    on the images' device seeded with `dropout_seed(train_cfg.seed,
-    state.step * microbatches + i)`: deterministic under resume, as the
-    JAX package's fold_in(PRNGKey(seed), step) is, though not its draws.
+    `microbatches` > 1 (ghost BatchNorm, jabd_tpu/train.py:201-258): each
+    chunk has its own forward, loss (normalized by its own positives) and
+    backward. `tap_dropout` draws from the step's dropout stream under
+    `train_cfg.seed`.
 
     `mesh`: the process mesh the batch is sharded over (fit's). Images,
     plan and targets are then this rank's rows, chunk i of them its shard
@@ -248,37 +241,36 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
     microbatches)`); the model is a replica made by `place_on_mesh`
     (`create_train_state(mesh=)`), its BatchNorms synchronized. Each rank's
     loss terms are its share of the global terms (losses.multibox_loss
-    `matching_mesh`), the gradients are summed over the mesh (FSDP
-    reduce-scatters the ones it shards), and the metrics are the global
-    batch's. Rank r of n draws its dropout masks from stream (step * mb +
-    i) * n + r. A mesh of size 1 is the plain step.
+    `matching_mesh`), so the summed metrics are the global batch's. A mesh
+    of size 1 is the plain step.
 
-    Each step opens a `jabd.train.step` span with one span per phase inside
-    it (utils/tracing.py: recorded only while a torch profiler records).
+    Each step opens a `jabd.train.step` span (`step.run_step`; the loss
+    phase `jabd.train.loss`).
 
     Raises ValueError for a model with an IoU head."""
     check_supported(model_cfg, train_cfg)
-    bf16 = model_cfg.compute_dtype == "bfloat16"
-    mb = max(train_cfg.microbatches, 1)  # <= 1: the whole batch, as in JAX
     mesh = mesh if M.is_sharded(mesh) else None
 
-    def chunk_backward(model, images, targets, anchors, stream: int):
-        dev = images.device
-        with T.span("jabd.train.forward", dev):
-            x = images.permute(0, 3, 1, 2)
-            generator = None
-            if model_cfg.tap_dropout > 0.0:
-                if mesh is not None:
-                    stream = stream * mesh.size + mesh.rank
-                generator = torch.Generator(x.device).manual_seed(dropout_seed(train_cfg.seed, stream))
-            with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-                out = model(x, remat=train_cfg.remat, generator=generator)
-            saved = _batchnorm_stats(model) if train_cfg.remat else None
-        with T.span("jabd.train.loss", dev):
+    def run(state: TrainState, make_images, batch: int, targets: losses.Targets, anchors: torch.Tensor):
+        model = state.model
+        model.train()
+        saved = []
+
+        def forward(x, generator):
+            out = model(x, remat=train_cfg.remat, generator=generator)
+            if train_cfg.remat:
+                saved[:] = _batchnorm_stats(model)
+            return out
+
+        def metrics(total, parts):
+            _restore_batchnorm_stats(saved)
+            return {"loss": total.detach(), **{k: v.detach() for k, v in parts.items()}}
+
+        def loss(out, part):
             parts = losses.multibox_loss(
                 out,
                 anchors,
-                targets,
+                losses.Targets(*(t[part] for t in targets)),
                 overlap_threshold=train_cfg.overlap_threshold,
                 neg_pos_ratio=train_cfg.neg_pos_ratio,
                 variances=model_cfg.anchors.variance,
@@ -286,43 +278,14 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
                 matching_impl=train_cfg.matching_impl,
                 matching_mesh=mesh,
             )
-            loss = losses.total_loss(parts, train_cfg.loc_weight)
-        with T.span("jabd.train.backward", dev):
-            loss.backward()  # adds into .grad
-            if saved is not None:
-                _restore_batchnorm_stats(saved)
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+            total = losses.total_loss(parts, train_cfg.loc_weight)
+            return total, lambda: metrics(total, parts)
 
-    def run(state: TrainState, make_images, batch: int, targets: losses.Targets, anchors: torch.Tensor):
-        if batch % mb:
-            raise ValueError(f"batch {batch} not divisible by microbatches={mb}")
-        with T.span("jabd.train.step"):
-            model = state.model
-            model.train()
-            state.optimizer.zero_grad(set_to_none=True)
-            n = batch // mb
-            chunks = []
-            for i in range(mb):
-                part = slice(i * n, (i + 1) * n)
-                chunk_targets = losses.Targets(*(t[part] for t in targets))
-                # A dropout stream per chunk: step * mb + i, as in JAX.
-                chunks.append(chunk_backward(model, make_images(part), chunk_targets, anchors, state.step * mb + i))
-            if mesh is not None:
-                with T.span("jabd.train.allreduce"):
-                    M.all_reduce_grads(FS.replicated_parameters(model), mesh)
-                    keys = list(chunks[0])
-                    summed = M.all_reduce(torch.stack([torch.stack([c[k] for k in keys]) for c in chunks]), mesh)
-                    chunks = [dict(zip(keys, row)) for row in summed]
-            with T.span("jabd.train.optimizer", anchors.device):
-                if mb == 1:
-                    metrics = chunks[0]
-                else:
-                    for p in model.parameters():
-                        if p.grad is not None:
-                            p.grad.div_(mb)
-                    metrics = {k: torch.stack([c[k] for c in chunks]).mean() for k in chunks[0]}
-                state.apply_gradients()
-        return state, metrics
+        return state, ST.run_step(
+            state, make_images, batch, forward, loss, prefix="jabd.train", microbatches=train_cfg.microbatches,
+            mesh=mesh, bf16=model_cfg.compute_dtype == "bfloat16", seed=train_cfg.seed,
+            dropout=model_cfg.tap_dropout > 0.0, metric_shares=True,
+        )
 
     if not train_cfg.device_augment:
 
@@ -343,60 +306,6 @@ def make_train_step(model_cfg: configs.ModelConfig, train_cfg: configs.TrainConf
     return aug_step
 
 
-def _to_device(x, device: torch.device, moved: list):
-    """Copy a batch's tensors (in tuples and NamedTuples, or None) to
-    `device`, non-blocking from pinned memory when it is a card; the copies
-    are appended to `moved`."""
-    if x is None:
-        return None
-    if isinstance(x, torch.Tensor):
-        if device.type == "cuda":
-            x = x.pin_memory()
-        moved.append(x.to(device, non_blocking=True))
-        return moved[-1]
-    if isinstance(x, tuple):
-        parts = (_to_device(v, device, moved) for v in x)
-        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
-    raise TypeError(f"cannot move {type(x).__name__} to a device")
-
-
-def prefetch_to_device(iterator, device, depth: int = 2):
-    """Keep `depth` batches in flight on `device`: each batch (tuples and
-    NamedTuples of CPU tensors, or None) is copied before the one ahead of
-    it is yielded. Port of jabd_tpu/parallel/mesh.py:132-153 for one device
-    (the reference DataLoader's pin_memory).
-
-    On a card the copies run from pinned host memory on a stream of their
-    own, so the copy of batch i + 1 overlaps step i on the current stream;
-    the current stream waits for a batch's copies only when it is yielded,
-    and the copied tensors are recorded on it for the caching allocator."""
-    device = torch.device(device)
-    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-    queue = collections.deque()
-
-    def ready(entry):
-        batch, moved, done = entry
-        if done is not None:
-            compute = torch.cuda.current_stream(device)
-            compute.wait_event(done)
-            for t in moved:
-                t.record_stream(compute)
-        return batch
-
-    for batch in iterator:
-        moved = []
-        if copy_stream is None:
-            queue.append((_to_device(batch, device, moved), moved, None))
-        else:
-            with torch.cuda.stream(copy_stream):
-                batch = _to_device(batch, device, moved)
-                queue.append((batch, moved, copy_stream.record_event()))
-        if len(queue) >= depth:
-            yield ready(queue.popleft())
-    while queue:
-        yield ready(queue.popleft())
-
-
 def fit(
     model_cfg: configs.ModelConfig,
     train_cfg: configs.TrainConfig,
@@ -413,7 +322,7 @@ def fit(
     given). Batches come from `data/wider.train_loader` (host augmentation)
     or, with `device_augment`, `data/device_augment.device_train_loader`
     (uint8 sources and plans at `augment_bucket`), through
-    `prefetch_to_device`. Appends one row per epoch to
+    `step.prefetch_to_device`. Appends one row per epoch to
     `<log_dir>/metrics.csv`, resumes from the latest checkpoint of
     `checkpoint_manager` (optimizer included) and always saves the final
     state. Returns the TrainState.
@@ -434,7 +343,6 @@ def fit(
     mesh = mesh or M.process_mesh(dev)
     mb = max(train_cfg.microbatches, 1)
     M.check_divisible(train_cfg.batch_size, mesh, mb)
-    sharded = M.is_sharded(mesh)
     lead = mesh.rank == 0
     step_fn = make_train_step(model_cfg, train_cfg, mesh=mesh)
     steps_per_epoch = max(len(dataset) // train_cfg.batch_size, 1)
@@ -447,12 +355,6 @@ def fit(
         if not os.path.exists(metrics_path):
             with open(metrics_path, "w") as f:
                 f.write("epoch,step,loss,loss_l,loss_c,loss_landm,lr\n")
-
-    def save(step: int, state: TrainState) -> None:
-        payload = state.state_dict()  # a collective under FSDP
-        if lead:
-            checkpoint_manager.save(step, _Payload(payload))
-        M.barrier(mesh)
 
     state = init_state
     resume_phase_freeze = None
@@ -529,8 +431,7 @@ def fit(
                         dataset, train_cfg.batch_size, max_targets=train_cfg.max_targets, seed=seed,
                     )
                 )
-            fed = M.prefetch_to_device(batches, mesh, 2, chunks=mb) if sharded else prefetch_to_device(batches, dev, 2)
-            for images, plan, *arrays in fed:
+            for images, plan, *arrays in ST.prefetch_to_device(batches, dev, 2, mesh=mesh, chunks=mb):
                 targets = losses.Targets(*arrays)
                 if plan is None:
                     state, metrics = step_fn(state, images, targets, anchors)
@@ -555,21 +456,12 @@ def fit(
                     f"({time.time() - t0:.1f}s, {nsteps} steps)"
                 )
             if checkpoint_manager is not None and (epoch + 1) % train_cfg.save_period == 0:
-                save(epoch + 1, state)
+                ST.save_checkpoint(checkpoint_manager, epoch + 1, state, mesh)
     if (
         checkpoint_manager is not None
         and state is not None
         and checkpoint_manager.latest_step() != train_cfg.total_epochs
     ):
-        save(train_cfg.total_epochs, state)
+        ST.save_checkpoint(checkpoint_manager, train_cfg.total_epochs, state, mesh)
     return state
 
-
-class _Payload:
-    """A state dict already gathered, for CheckpointManager.save."""
-
-    def __init__(self, payload: Dict):
-        self.payload = payload
-
-    def state_dict(self) -> Dict:
-        return self.payload

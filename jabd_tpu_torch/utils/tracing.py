@@ -34,10 +34,9 @@ torch.compile or torch.export tracing all stays off, so no profiler node
 enters a compiled or exported graph.
 
 Spans: `jabd.detect` (predict.py; children prepare, upload, letterbox,
-forward, select, k1, compact, download, finish), `jabd.train.step`
-(train.py; augment, forward, loss > match, backward, allreduce,
-optimizer), `jabd.rectrain.step` (recognition/train.py; augment, forward,
-head, backward, optimizer), `jabd.serve.batch` (serve.py); of them
+forward, select, k1, compact, download, finish), `jabd.train.step` and
+`jabd.rectrain.step` (step.py; augment, forward, loss > match or head,
+backward, allreduce, optimizer), `jabd.serve.batch` (serve.py); of them
 `jabd.detect.forward`, `jabd.train.{forward,loss,backward,optimizer}` and
 `jabd.rectrain.{forward,head,backward,optimizer}` time the card.
 Counters: `k1.pairs`, `k1.useful_pairs` (ops/nms_cuda.py).

@@ -14,11 +14,13 @@ import torch
 
 from jabd_tpu_torch import configs as TC
 from jabd_tpu_torch import losses as TL
+from jabd_tpu_torch import step as ST
 from jabd_tpu_torch import train as TT
 from jabd_tpu_torch.models import build_model
 from jabd_tpu_torch.models import layers as TLayers
 from jabd_tpu_torch.parallel import fsdp as FS
 from jabd_tpu_torch.parallel import mesh as M
+from tests._torch_port_spans import span_tree
 
 
 def one_process(fn, payload):
@@ -143,8 +145,9 @@ def det_fit(payload, mesh):
 def rec_steps(payload, mesh):
     """Class-sharded recognition steps (recognition/parallel.py) from the
     payload's backbone and head state dicts on its global batches, this
-    rank's rows. Returns each step's metrics and the gathered state in the
-    single-process layout."""
+    rank's rows, under a CPU profiler. Returns each step's metrics, the
+    gathered state in the single-process layout and the spans inside each
+    `jabd.rectrain.step`."""
     from jabd_tpu_torch.recognition import build_head
     from jabd_tpu_torch.recognition import net as TN
     from jabd_tpu_torch.recognition import parallel as RP
@@ -158,12 +161,13 @@ def rec_steps(payload, mesh):
     state = RT.create_state(model, head, num_train_steps_hint=100, lr=payload["lr"], milestones=(50,))
     step, state = RP.make_sharded_train_step(state, mesh, fsdp=payload.get("fsdp", False))
     metrics = []
-    for images, labels in payload["batches"]:
-        if M.is_sharded(mesh):
-            images, labels = M.shard_batch((images, labels), mesh)
-        state, m = step(state, images, labels)
-        metrics.append({k: float(v) for k, v in m.items()})
-    out = {"metrics": metrics, "state": state.state_dict()}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for images, labels in payload["batches"]:
+            if M.is_sharded(mesh):
+                images, labels = M.shard_batch((images, labels), mesh)
+            state, m = step(state, images, labels)
+            metrics.append({k: float(v) for k, v in m.items()})
+    out = {"metrics": metrics, "state": state.state_dict(), "spans": span_tree(prof, "jabd.rectrain.step")}
     if M.is_sharded(mesh):
         out["head_local"] = tuple(state.head.kernel.shape)
     return out
@@ -196,5 +200,5 @@ def mesh_facts(payload, mesh):
     (s * (mesh.rank + 1)).sum().backward()
     out["sum"], out["sum_grad"] = s.detach(), z.grad.clone()
     batches = [(torch.arange(8.0).reshape(4, 2), None)]
-    out["fed"] = [b[0] for b in M.prefetch_to_device(iter(batches), mesh, 2)]
+    out["fed"] = [b[0] for b in ST.prefetch_to_device(iter(batches), mesh.device, 2, mesh=mesh)]
     return out

@@ -14,6 +14,7 @@ import torch
 
 from jabd_tpu.data import device_augment as JDA
 from jabd_tpu_torch import configs as TC
+from jabd_tpu_torch import step as ST
 from jabd_tpu_torch import train as TT
 from jabd_tpu_torch.data import device_augment as TDA
 from jabd_tpu_torch.data import wider as TW
@@ -110,7 +111,7 @@ def test_fit_on_a_wider_directory(tmp_path, options):
 def test_prefetch_to_device_keeps_order_and_structure():
     plan = TDA.AugmentPlanTaps(*(torch.full((2, 3), float(i)) for i in range(7)))
     batches = [(torch.full((2,), float(i)), plan if i % 2 else None, torch.zeros(1)) for i in range(5)]
-    got = list(TT.prefetch_to_device(iter(batches), "cpu", depth=2))
+    got = list(ST.prefetch_to_device(iter(batches), "cpu", depth=2))
     assert len(got) == 5
     for i, (x, p, z) in enumerate(got):
         assert torch.equal(x, batches[i][0]) and z.shape == (1,)
@@ -118,4 +119,4 @@ def test_prefetch_to_device_keeps_order_and_structure():
         if p is not None:
             assert isinstance(p, TDA.AugmentPlanTaps) and torch.equal(p.hsv, plan.hsv)
     with pytest.raises(TypeError):
-        list(TT.prefetch_to_device(iter([("not a tensor",)]), "cpu"))
+        list(ST.prefetch_to_device(iter([("not a tensor",)]), "cpu"))

@@ -1,9 +1,13 @@
-"""PyTorch port, ops: anchors, box decode, resize/pool, letterbox, and the
-import boundary (the port never imports jax or the JAX package).
+"""PyTorch port, ops: anchors, box decode, resize/pool, letterbox, the
+import boundary (the port never imports jax or the JAX package) and its
+layering (`parallel/` and `recognition/` never reach up into the
+detector's training module).
 
 Each case feeds the same numpy inputs to the JAX function and its port.
 """
 
+import ast
+import pathlib
 import subprocess
 import sys
 import textwrap
@@ -81,6 +85,7 @@ PORT_MODULES = [
     "jabd_tpu_torch.recognition.train",
     "jabd_tpu_torch.recognition.verification",
     "jabd_tpu_torch.serve",
+    "jabd_tpu_torch.step",
     "jabd_tpu_torch.train",
     "jabd_tpu_torch.utils",
     "jabd_tpu_torch.utils.checkpoint",
@@ -120,6 +125,47 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         """
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=_repo_root())
+
+
+def _imports(path):
+    """(module, name) for every import in `path`, function-level ones
+    included: name None for `import module`, else each name of a
+    `from module import name`; and each attribute read off a name bound to
+    a module by `from package import module` as (package.module, attr)."""
+    tree = ast.parse(path.read_text())
+    package = ".".join(path.relative_to(_repo_root()).with_suffix("").parts[:-1])
+    found, modules = [], {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [(a.name, None) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parent = package.rsplit(".", node.level - 1)[0] if node.level > 1 else package
+                base = f"{parent}.{base}".rstrip(".")
+            for a in node.names:
+                found.append((base, a.name))
+                modules[a.asname or a.name] = f"{base}.{a.name}"
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name) and node.value.id in modules:
+            found.append((modules[node.value.id], node.attr))
+    return found
+
+
+@pytest.mark.parametrize("layer", ["parallel", "recognition"])
+def test_lower_layers_never_import_the_detector_training_module(layer):
+    """Every module under jabd_tpu_torch/<layer>/ imports neither
+    `jabd_tpu_torch.train` nor `dropout_seed` from the detector model
+    (it lives in `jabd_tpu_torch.step`), at import time or in a
+    function."""
+    bad = []
+    for path in sorted((pathlib.Path(_repo_root()) / "jabd_tpu_torch" / layer).rglob("*.py")):
+        for module, name in _imports(path):
+            if module == "jabd_tpu_torch.train" or (module, name) == ("jabd_tpu_torch", "train"):
+                bad.append((path.name, module, name))
+            if name == "dropout_seed" and module.startswith("jabd_tpu_torch.models"):
+                bad.append((path.name, module, name))
+    assert not bad, bad
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

@@ -8,8 +8,8 @@ CPU mesh, ir_18 at 56x56 with dropout 0, from the JAX state's weights
 - two sharded steps per head (AdaFace, ArcFace, CosFace): loss, acc, every
   parameter, the BatchNorm statistics and AdaFace's EMA buffers, with
   tests/test_torch_port_recognition_train.py's bounds; each rank holds
-  half of the head's columns, and the gathered checkpoint loads into the
-  single-process state;
+  half of the head's columns, the gathered checkpoint loads into the
+  single-process state, and each step opens the `jabd.rectrain.*` spans;
 - a padded head (7 classes -> 8) against the unpadded single-process step,
   an unpadded uneven head raising JAX's ValueError, and `fsdp=True`
   against the replicated backbone;
@@ -94,6 +94,9 @@ def test_sharded_steps_match_the_jax_sharded_steps(head_type, tmp_path):
         jm.append({k2: float(v) for k2, v in m.items()})
     ranks = _two_ranks(T.rec_steps, data, tmp_path)
     assert ranks[0]["metrics"] == ranks[1]["metrics"]
+    # step.run_step's span tree, on every rank
+    phases = [f"jabd.rectrain.{p}" for p in ("forward", "head", "backward", "allreduce", "optimizer")]
+    assert ranks[0]["spans"] == ranks[1]["spans"] == [phases] * len(batches)
     assert ranks[0]["head_local"] == (512, CLASSES // 2)
     # test_torch_port_recognition_train.py's bounds: step 1 to 1e-6 (the
     # same weights), step 2 to 5e-4 (the first update's float32 gradient

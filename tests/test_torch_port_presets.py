@@ -26,6 +26,7 @@ from jabd_tpu import configs as JC
 from jabd_tpu_torch import configs as TC
 from jabd_tpu_torch import losses as TLoss
 from jabd_tpu_torch import predict as TP
+from jabd_tpu_torch import step as ST
 from jabd_tpu_torch import train as TT
 from jabd_tpu_torch.models import build_model
 from jabd_tpu_torch.utils.convert import state_dict_from_flax
@@ -181,7 +182,7 @@ def test_tap_dropout_statistics_and_stream(dropout_pair):
         lambda m, a, out: raw.update(enumerate(t.clone() for t in out))))
 
     def draw(step):
-        g = torch.Generator().manual_seed(TR.dropout_seed(7, step))
+        g = torch.Generator().manual_seed(ST.dropout_seed(7, step))
         with torch.no_grad():
             model(to_nchw(x), generator=g)
         return {i: t.clone() for i, t in seen.items()}

@@ -45,6 +45,7 @@ from jabd_tpu_torch.utils import profiling
 from jabd_tpu_torch.utils import tracing as T
 from portbench import counts, harness
 from portbench import tracing as PT
+from tests._torch_port_spans import host_events, inside, named
 from tests._torch_port_steps import one_torch_thread  # noqa: F401
 
 SIZE = 64
@@ -78,21 +79,6 @@ def predictor(model_cfg, state_dict):
 def images():
     rng = np.random.default_rng(0)
     return [rng.integers(0, 256, (48, 80, 3), np.uint8), rng.integers(0, 256, (70, 50, 3), np.uint8)]
-
-
-def host_events(prof):
-    return [ev for ev in prof.profiler.kineto_results.events() if not str(ev.device_type()).endswith("CUDA")]
-
-
-def inside(events, outer):
-    """The events of `events` within `outer`'s range, by start."""
-    lo, hi = outer.start_ns(), outer.start_ns() + outer.duration_ns()
-    return sorted((ev for ev in events if ev is not outer and lo <= ev.start_ns() and ev.start_ns() + ev.duration_ns() <= hi),
-                  key=lambda ev: ev.start_ns())
-
-
-def named(events, name):
-    return sorted((ev for ev in events if ev.name() == name), key=lambda ev: ev.start_ns())
 
 
 def test_the_flag_is_torch_profilers():
